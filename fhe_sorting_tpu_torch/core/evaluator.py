@@ -1,0 +1,391 @@
+"""Homomorphic evaluation ops over int64 limb planes (the main-path surface).
+
+Port of `fhe_sorting_tpu/core/evaluator.py`: add/sub/negate, ct*pt, ct*ct
+with relinearisation, rescale, level alignment, rotations by Galois gather,
+the on-device plaintext roll of `mult_plain_at` and the batched linear
+combination `combo`.  Every op runs eagerly on `ctx.device` and returns the
+same canonical residues as the reference.
+
+Key switching is hybrid: ModUp (INTT, CRT base extension per digit as an
+exact modular matmul, NTT of every digit in one batched call), the inner
+product with the key, then ModDown (division by P).  Every NTT goes through
+`core/ntt.py`, which sends the four-step path to the CUDA kernel K1 on a
+GPU.  Limb subsets are index tensors cached on the context, so no table is
+sliced or copied per op.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import Counter, OrderedDict
+
+import numpy as np
+import torch
+
+from . import ntt as nttm
+from .cipher import Ciphertext, Plaintext
+from .context import Context
+from .encoding import coeffs_to_residues, encode_coeffs
+from .keys import KeySwitchKey, Keys
+from .modmath import add_mod, mulmod, neg_mod, sub_mod
+from .ntt_mxu import mod_matmul
+
+# a full-chain ring-2^17 plaintext is 68 limbs x 1 MB: ~28 of them
+_PT_CACHE_BYTES = 2 << 30
+
+
+class Evaluator:
+    """Op collection bound to a Context + Keys."""
+
+    def __init__(self, ctx: Context, keys: Keys):
+        self.ctx = ctx
+        self.keys = keys
+        # logical-op counter for roofline accounting: (op, level) -> count
+        self.op_stats: Counter = Counter()
+        # encoded-plaintext memo (LRU), bounded by device bytes
+        self._pt_cache: OrderedDict = OrderedDict()
+        self._pt_cache_used = 0
+
+    # -- helpers -----------------------------------------------------------
+
+    def _ntt(self, x, limbs):
+        return nttm.ntt(x, self.ctx.tables, limbs)
+
+    def _intt(self, x, limbs):
+        return nttm.intt(x, self.ctx.tables, limbs)
+
+    def _scalar_limbs(self, c: float, level: int, scale: float) -> torch.Tensor:
+        m = int(np.rint(np.float64(c) * scale))
+        Ll = self.ctx.limbs_at(level)
+        return self.ctx.tensor([[m % p] for p in self.ctx.q_primes[:Ll]])
+
+    # -- plaintext construction --------------------------------------------
+
+    def make_plaintext(self, values, level: int, sdeg: int = 1,
+                       slots: int | None = None) -> Plaintext:
+        """Encode on the host, NTT on the device; memoized by content."""
+        ctx = self.ctx
+        values = np.asarray(values)
+        values = values.astype(np.complex128 if np.iscomplexobj(values) else np.float64)
+        s = slots if slots is not None else len(values)
+        key = (hashlib.sha1(values.tobytes()).digest(), values.dtype.char, level, sdeg, s)
+        hit = self._pt_cache.get(key)
+        if hit is not None:
+            self._pt_cache.move_to_end(key)
+            return hit
+        coeffs = encode_coeffs(values, ctx.params.ring_n, ctx.scale(level, sdeg), slots=s)
+        res = coeffs_to_residues(coeffs, ctx.q_primes[: ctx.limbs_at(level)])
+        pt = Plaintext(self._ntt(ctx.tensor(res), ctx.active_limbs(level)), level, sdeg, s)
+        nbytes = pt.data.numel() * pt.data.element_size()
+        self._pt_cache[key] = pt
+        self._pt_cache_used += nbytes
+        while self._pt_cache_used > _PT_CACHE_BYTES and len(self._pt_cache) > 1:
+            _, old = self._pt_cache.popitem(last=False)
+            self._pt_cache_used -= old.data.numel() * old.data.element_size()
+        return pt
+
+    # -- add / sub / neg ---------------------------------------------------
+
+    def _align_add(self, a: Ciphertext, b: Ciphertext):
+        if a.level != b.level:
+            if a.level < b.level:
+                a = self.adjust_level(a, b.level)
+            else:
+                b = self.adjust_level(b, a.level)
+        if a.sdeg != b.sdeg:
+            if a.sdeg == 1:
+                a = self._to_sdeg2(a)
+            else:
+                b = self._to_sdeg2(b)
+        return a, b
+
+    def _on_c0(self, a: Ciphertext, fn) -> Ciphertext:
+        return a.with_data(torch.stack([fn(a.data[0]), a.data[1]]))
+
+    def add(self, a: Ciphertext, b) -> Ciphertext:
+        self.op_stats[("add", a.level)] += 1
+        if isinstance(b, Ciphertext):
+            a, b = self._align_add(a, b)
+            return a.with_data(add_mod(a.data, b.data, self.ctx.p_active(a.level)))
+        p = self.ctx.p_active(a.level)
+        if isinstance(b, Plaintext):
+            assert b.level == a.level and b.sdeg == a.sdeg, "pt/ct mismatch"
+            return self._on_c0(a, lambda c0: add_mod(c0, b.data, p))
+        sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, a.sdeg))
+        return self._on_c0(a, lambda c0: add_mod(c0, sc, p))
+
+    def sub(self, a: Ciphertext, b) -> Ciphertext:
+        self.op_stats[("add", a.level)] += 1
+        if isinstance(b, Ciphertext):
+            a, b = self._align_add(a, b)
+            return a.with_data(sub_mod(a.data, b.data, self.ctx.p_active(a.level)))
+        if isinstance(b, Plaintext):
+            assert b.level == a.level and b.sdeg == a.sdeg, "pt/ct mismatch"
+            p = self.ctx.p_active(a.level)
+            return self._on_c0(a, lambda c0: sub_mod(c0, b.data, p))
+        return self.add(a, -float(b))
+
+    def rsub(self, b, a: Ciphertext) -> Ciphertext:
+        """scalar/plaintext minus ciphertext."""
+        return self.add(self.negate(a), b)
+
+    def negate(self, a: Ciphertext) -> Ciphertext:
+        return a.with_data(neg_mod(a.data, self.ctx.p_active(a.level)))
+
+    # -- level / scale adjustment ------------------------------------------
+
+    def _drop_limbs(self, a: Ciphertext, target_level: int) -> Ciphertext:
+        """Raw limb drop: the declared level changes, the true scale does not."""
+        Lt = self.ctx.limbs_at(target_level)
+        return Ciphertext(a.data[:, :Lt], target_level, a.sdeg, a.slots)
+
+    def level_reduce(self, a: Ciphertext, target_level: int) -> Ciphertext:
+        """Descend to target_level keeping the declared scale exact: a raw
+        drop where the scales agree, adjust_level's scalar fold otherwise."""
+        assert target_level >= a.level
+        if a.sdeg == 1 and self.ctx.scale_dec(target_level) == self.ctx.scale_dec(a.level):
+            return self._drop_limbs(a, target_level)
+        return self.adjust_level(a, target_level)
+
+    def adjust_level(self, a: Ciphertext, target_level: int) -> Ciphertext:
+        if a.level == target_level:
+            return a
+        if a.sdeg == 2:
+            a = self._rescale_impl(a)
+            if a.level == target_level:
+                return a
+            if a.level > target_level:
+                raise ValueError("cannot adjust downwards")
+        ctx = self.ctx
+        la = a.level
+        t = float(ctx.scale_dec(target_level) * ctx.drop_prime(la) / ctx.scale_dec(la))
+        sc = self._scalar_limbs(1.0, la, t)
+        a = Ciphertext(mulmod(a.data, sc, ctx.p_active(la)), la, 2, a.slots)
+        a = self._rescale_data(a)
+        # the t-fold above already landed the true scale at scale_dec(target)
+        return self._drop_limbs(Ciphertext(a.data, a.level, 1, a.slots), target_level)
+
+    def _to_sdeg2(self, a: Ciphertext) -> Ciphertext:
+        sc = self._scalar_limbs(1.0, a.level, self.ctx.scale(a.level, 1))
+        return Ciphertext(mulmod(a.data, sc, self.ctx.p_active(a.level)), a.level, 2, a.slots)
+
+    def align_group(self, cts):
+        """Common (level, sdeg) for a group."""
+        lvl = max(c.level for c in cts)
+        out = [self.adjust_level(c, lvl) if c.level < lvl else c for c in cts]
+        lvl = max(c.level for c in out)
+        out = [self.adjust_level(c, lvl) if c.level < lvl else c for c in out]
+        if len({c.sdeg for c in out}) > 1:
+            out = [self._to_sdeg2(c) if c.sdeg == 1 else c for c in out]
+        return out
+
+    # -- rescale -----------------------------------------------------------
+
+    def _rescale_data(self, a: Ciphertext) -> Ciphertext:
+        ctx = self.ctx
+        lvl = a.level
+        if lvl >= ctx.params.mult_depth:
+            raise RuntimeError(
+                f"multiplicative depth exhausted (level {lvl} == mult_depth "
+                f"{ctx.params.mult_depth}); deepen parameters or bootstrap")
+        comp = ctx.params.comp
+        data = a.data
+        for j in range(comp):
+            Ll = ctx.limbs_at(lvl) - j
+            plan = ctx.rescale_plans[lvl * comp + j]
+            p_rest = ctx.pc.p[: Ll - 1]
+            x = self._intt(data[:, Ll - 1 : Ll], ctx.limbs_range(Ll - 1, Ll))  # [2,1,n]
+            xm = torch.remainder(x, p_rest)
+            t = torch.where(x >= plan.qlast_half, sub_mod(xm, plan.qlast_mod_qi, p_rest), xm)
+            num = sub_mod(data[:, : Ll - 1], self._ntt(t, ctx.limbs_range(0, Ll - 1)), p_rest)
+            data = mulmod(num, plan.qlast_inv, p_rest)
+        return Ciphertext(data, lvl + 1, a.sdeg, a.slots)
+
+    def _rescale_impl(self, a: Ciphertext) -> Ciphertext:
+        assert a.sdeg == 2, "rescale only from scale degree 2"
+        out = self._rescale_data(a)
+        return Ciphertext(out.data, out.level, 1, out.slots)
+
+    def rescale(self, a: Ciphertext) -> Ciphertext:
+        self.op_stats[("rescale", a.level)] += 1
+        return self._rescale_impl(a)
+
+    # -- multiplication ----------------------------------------------------
+
+    def mult(self, a: Ciphertext, b) -> Ciphertext:
+        if isinstance(b, Ciphertext):
+            le = max(a.level + (a.sdeg == 2), b.level + (b.sdeg == 2))
+            self.op_stats[("mult_ct", le)] += 1
+            return self._mult_ct(a, b)
+        if a.sdeg == 2:
+            a = self.rescale(a)
+        self.op_stats[("mult_pt", a.level)] += 1
+        p = self.ctx.p_active(a.level)
+        if isinstance(b, Plaintext):
+            assert b.level == a.level and b.sdeg == 1, (
+                f"plaintext at level {b.level}/deg {b.sdeg}, ct at {a.level}")
+            return Ciphertext(mulmod(a.data, b.data, p), a.level, 2, a.slots)
+        sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, 1))
+        return Ciphertext(mulmod(a.data, sc, p), a.level, 2, a.slots)
+
+    def mult_plain_at(self, a: Ciphertext, values, roll: int = 0) -> Ciphertext:
+        """Multiply by np.roll(values, roll) encoded at a's (post-rescale)
+        level: the roll is a plaintext automorphism applied on the device,
+        so every roll of one mask shares one encode."""
+        if a.sdeg == 2:
+            a = self.rescale(a)
+        pt = self.make_plaintext(values, a.level, 1, slots=a.slots)
+        if roll % (self.ctx.params.ring_n // 2) == 0:
+            return self.mult(a, pt)
+        # np.roll(v, s) = slot left-rotation by -s
+        perm = self.ctx.galois_perm(self.ctx.galois_element_rot(-roll))
+        self.op_stats[("mult_pt", a.level)] += 1
+        rolled = pt.data[:, perm]
+        return Ciphertext(mulmod(a.data, rolled, self.ctx.p_active(a.level)),
+                          a.level, 2, a.slots)
+
+    def _mult_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        if a.sdeg == 2:
+            a = self._rescale_impl(a)
+        if b.sdeg == 2:
+            b = self._rescale_impl(b)
+        if a.level < b.level:
+            a = self.adjust_level(a, b.level)
+        elif b.level < a.level:
+            b = self.adjust_level(b, a.level)
+        p = self.ctx.p_active(a.level)
+        a0, a1 = a.data[0], a.data[1]
+        b0, b1 = b.data[0], b.data[1]
+        d0 = mulmod(a0, b0, p)
+        d1 = add_mod(mulmod(a0, b1, p), mulmod(a1, b0, p), p)
+        e0, e1 = self._keyswitch_core(mulmod(a1, b1, p), a.level, self.keys.relin)
+        return Ciphertext(torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]),
+                          a.level, 2, a.slots)
+
+    def square(self, a: Ciphertext) -> Ciphertext:
+        self.op_stats[("mult_ct", a.level + (a.sdeg == 2))] += 1
+        if a.sdeg == 2:
+            a = self._rescale_impl(a)
+        p = self.ctx.p_active(a.level)
+        a0, a1 = a.data[0], a.data[1]
+        d0 = mulmod(a0, a0, p)
+        cross = mulmod(a0, a1, p)
+        d1 = add_mod(cross, cross, p)
+        e0, e1 = self._keyswitch_core(mulmod(a1, a1, p), a.level, self.keys.relin)
+        return Ciphertext(torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]),
+                          a.level, 2, a.slots)
+
+    # -- key switching -----------------------------------------------------
+
+    def _modup(self, d_limb: torch.Tensor, level: int) -> torch.Tensor:
+        """Hybrid ModUp: [Ll, n] eval -> per-digit extended [D, T, n] eval.
+
+        The CRT base extension of each digit is an exact modular matmul:
+        out[t] = sum_i fac[t, i] y[i] mod p_t."""
+        ctx = self.ctx
+        plan = ctx.ks_plans[level]
+        p_a = ctx.p_active(level)
+        target = ctx.target_limbs(level)
+        p_t = ctx.pc.p[target]
+        y = mulmod(self._intt(d_limb, ctx.active_limbs(level)), plan.dhat_inv, p_a)
+        ext = torch.stack([mod_matmul(fac, y[lo:hi], p_t)
+                           for fac, (lo, hi) in zip(plan.dig_ext, ctx.digit_layout(level))])
+        return self._ntt(ext, target)
+
+    def _inner_product(self, digits: torch.Tensor, level: int, ksk: KeySwitchKey):
+        """sum_j digits[j] * ksk[j] over the target basis (active Q + P),
+        computed on the key's active and special rows in place."""
+        ctx = self.ctx
+        Ll = ctx.limbs_at(level)
+        D = digits.shape[0]
+        p_a, p_s = ctx.p_active(level), ctx.p_special()
+        out = []
+        for k in (ksk.kb, ksk.ka):
+            q = torch.remainder(mulmod(digits[:, :Ll], k[:D, :Ll], p_a).sum(0), p_a)
+            s = torch.remainder(mulmod(digits[:, Ll:], k[:D, ctx.num_q:], p_s).sum(0), p_s)
+            out.append(torch.cat([q, s]))
+        return out
+
+    def _moddown(self, c: torch.Tensor, level: int) -> torch.Tensor:
+        """Exact division by P.  c: [..., Ll+K, n] -> [..., Ll, n]."""
+        ctx = self.ctx
+        plan = ctx.ks_plans[level]
+        Ll = ctx.limbs_at(level)
+        p_a, p_s = ctx.p_active(level), ctx.p_special()
+        cp = self._intt(c[..., Ll:, :], ctx.special_limbs())
+        y = mulmod(cp, plan.phat_inv, p_s)
+        ext = self._ntt(mod_matmul(plan.pext, y, p_a), ctx.active_limbs(level))
+        return mulmod(sub_mod(c[..., :Ll, :], ext, p_a), plan.p_inv_mod_qi, p_a)
+
+    def _keyswitch_core(self, d_limb, level: int, ksk: KeySwitchKey):
+        acc0, acc1 = self._inner_product(self._modup(d_limb, level), level, ksk)
+        e = self._moddown(torch.stack([acc0, acc1]), level)
+        return e[0], e[1]
+
+    # -- rotations ---------------------------------------------------------
+
+    def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
+        """Left slot-rotation by r (negative = right)."""
+        if r % (self.ctx.params.ring_n // 2) == 0:
+            return a
+        self.op_stats[("rot", a.level)] += 1
+        g = self.ctx.galois_element_rot(r)
+        assert g in self.keys.rot, f"missing rotation key for galois {g}"
+        d = a.data[..., self.ctx.galois_perm(g)]
+        e0, e1 = self._keyswitch_core(d[1], a.level, self.keys.rot[g])
+        c0 = add_mod(d[0], e0, self.ctx.p_active(a.level))
+        return Ciphertext(torch.stack([c0, e1]), a.level, a.sdeg, a.slots)
+
+    # -- batched linear combinations ---------------------------------------
+
+    def combo(self, cts, rows, consts) -> list:
+        """Batched sum_b rows[r][b] * cts[b] + consts[r] -> R ciphertexts.
+
+        Inputs are aligned to a common (level, sdeg=1) first; outputs are
+        sdeg 2.  One per-limb modular matmul [R, B] @ [B, 2n] replaces R*B
+        scalar multiplies."""
+        assert len(cts) >= 1
+        lvl = max(c.level + (1 if c.sdeg == 2 else 0) for c in cts)
+        aligned = []
+        for c in cts:
+            if c.sdeg == 2:
+                c = self.rescale(c)
+            if c.level < lvl:
+                c = self.adjust_level(c, lvl)
+            aligned.append(c)
+        Ll = self.ctx.limbs_at(lvl)
+        rows = np.asarray(rows, dtype=np.float64)
+        consts = np.asarray(consts, dtype=np.float64)
+        R, B = rows.shape
+        assert B == len(cts) and consts.shape == (R,)
+        ps = np.array(self.ctx.q_primes[:Ll], dtype=np.int64)
+        m = np.rint(rows * self.ctx.scale(lvl, 1)).astype(np.int64)
+        coeff_res = m[None, :, :] % ps[:, None, None]               # [L, R, B]
+        s2 = float(self.ctx.scale_dec(lvl) ** 2)
+        const_res = np.zeros((R, Ll, 1), dtype=np.int64)
+        for r in range(R):
+            if consts[r] != 0.0:
+                mi = int(consts[r] * s2)
+                const_res[r, :, 0] = [mi % int(p) for p in ps]
+        self.op_stats[("combo", lvl, B, R)] += 1
+        p = self.ctx.p_active(lvl)
+        stacked = torch.stack([c.data for c in aligned])            # [B, 2, L, n]
+        n = stacked.shape[-1]
+        x = stacked.permute(2, 0, 1, 3).reshape(Ll, B, 2 * n)
+        out = mod_matmul(self.ctx.tensor(coeff_res), x, p[:, :, None])   # [L, R, 2n]
+        out = out.reshape(Ll, R, 2, n).permute(1, 2, 0, 3)         # [R, 2, L, n]
+        d0 = add_mod(out[:, 0], self.ctx.tensor(const_res), p)
+        out = torch.stack([d0, out[:, 1]], dim=1)
+        slots = aligned[0].slots
+        return [Ciphertext(out[r], lvl, 2, slots) for r in range(R)]
+
+    # -- misc --------------------------------------------------------------
+
+    def zeros_like(self, a: Ciphertext) -> Ciphertext:
+        return a.with_data(torch.zeros_like(a.data))
+
+    def add_many(self, cts) -> Ciphertext:
+        out = cts[0]
+        for c in cts[1:]:
+            out = self.add(out, c)
+        return out

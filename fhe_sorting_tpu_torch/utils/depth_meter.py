@@ -1,0 +1,136 @@
+"""Metadata-only depth metering of the staged DirectSort.
+
+Port of `fhe_sorting_tpu/utils/depth_meter.py`, metering the port's own
+`StagedDirectSort`: its stage functions run against a `MeterEvaluator`
+that implements the evaluator's (level, sdeg) transition rules on data-free
+ciphertexts - no keys, no NTTs, milliseconds.  `max_level` after a run is
+the least `mult_depth` a real context needs.
+
+Transition rules (as `core/evaluator.py`):
+  mult/square     : operands rescale first if sdeg==2, align levels, out sdeg 2
+  mult by pt/scalar: rescale first if sdeg==2, out sdeg 2
+  add/sub         : align levels and sdeg (1 -> 2 via a scalar)
+  rescale         : sdeg 2 -> 1, level += 1   (the depth-consuming op)
+  rotations       : metadata no-ops
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..core.cipher import Ciphertext, Plaintext
+
+
+@dataclass
+class _MeterParams:
+    ring_n: int
+
+
+class _MeterCtx:
+    def __init__(self, ring_n: int):
+        self.params = _MeterParams(ring_n)
+
+
+class MeterEvaluator:
+    """Evaluator facade tracking only (level, sdeg)."""
+
+    def __init__(self, ring_n: int):
+        self.ctx = _MeterCtx(ring_n)
+        self.op_stats: Counter = Counter()
+        self.max_level = 0
+        self.mults = 0
+        self.rotations = 0
+
+    def rescale(self, a: Ciphertext) -> Ciphertext:
+        lvl = a.level + 1
+        self.max_level = max(self.max_level, lvl)
+        return Ciphertext(None, lvl, 1, a.slots)
+
+    def adjust_level(self, a: Ciphertext, target: int) -> Ciphertext:
+        if a.sdeg == 2:
+            a = self.rescale(a)
+        if a.level > target:
+            raise ValueError("cannot adjust downwards")
+        if a.level < target:
+            # scalar mult to sdeg 2, rescale, then free limb drops
+            a = self.rescale(Ciphertext(None, a.level, 2, a.slots))
+            a = Ciphertext(None, target, a.sdeg, a.slots)
+        return a
+
+    def _align(self, a: Ciphertext, b: Ciphertext):
+        if a.level != b.level:
+            if a.level < b.level:
+                a = self.adjust_level(a, b.level)
+            else:
+                b = self.adjust_level(b, a.level)
+        if a.sdeg != b.sdeg:
+            if a.sdeg == 1:
+                a = Ciphertext(None, a.level, 2, a.slots)
+            else:
+                b = Ciphertext(None, b.level, 2, b.slots)
+        return a, b
+
+    def add(self, a: Ciphertext, b) -> Ciphertext:
+        if isinstance(b, Ciphertext):
+            a, b = self._align(a, b)
+        return Ciphertext(None, a.level, a.sdeg, a.slots)
+
+    sub = add
+
+    def rsub(self, b, a: Ciphertext) -> Ciphertext:
+        return self.add(a, b)
+
+    def mult(self, a: Ciphertext, b) -> Ciphertext:
+        self.mults += 1
+        if a.sdeg == 2:
+            a = self.rescale(a)
+        if isinstance(b, Ciphertext):
+            if b.sdeg == 2:
+                b = self.rescale(b)
+            if a.level < b.level:
+                a = self.adjust_level(a, b.level)
+            elif b.level < a.level:
+                b = self.adjust_level(b, a.level)
+        return Ciphertext(None, a.level, 2, a.slots)
+
+    def square(self, a: Ciphertext) -> Ciphertext:
+        return self.mult(a, a)
+
+    def mult_plain_at(self, a: Ciphertext, values, roll: int = 0) -> Ciphertext:
+        return self.mult(a, 1.0)
+
+    def make_plaintext(self, values, level: int, sdeg: int = 1,
+                       slots: int | None = None) -> Plaintext:
+        return Plaintext(None, level, sdeg, slots or 0)
+
+    def combo(self, cts, rows, consts):
+        """Inputs aligned to (max level incl. pending rescales, sdeg 1),
+        outputs at sdeg 2."""
+        tgt = max(c.level + (1 if c.sdeg == 2 else 0) for c in cts)
+        self.max_level = max(self.max_level, tgt)
+        R = np.asarray(rows).shape[0]
+        self.mults += R
+        return [Ciphertext(None, tgt, 2, cts[0].slots) for _ in range(R)]
+
+    def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
+        self.rotations += 1
+        return a
+
+
+def measure_direct_sort_depth(N: int, ring_n: int, sign_cfg=None) -> dict:
+    """Required mult_depth (+ op counts) of the staged DirectSort."""
+    from ..ops.sign import SignConfig
+    from ..parallel.direct_staged import StagedDirectSort
+
+    ev = MeterEvaluator(ring_n)
+    out = StagedDirectSort(ev, N, sign_cfg or SignConfig())(Ciphertext(None, 0, 1, N))
+    # decrypt headroom: an sdeg-2 result at the bottom carries scale^2, which
+    # exceeds the base limbs' modulus - reserve one more level
+    return {
+        "mult_depth": ev.max_level + (1 if out.sdeg == 2 else 0),
+        "final_level": out.level,
+        "ct_mults_and_rotations": (ev.mults, ev.rotations),
+    }
