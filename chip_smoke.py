@@ -4,19 +4,39 @@
 
 Phases (each failure raises, and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the four-step NTT kernel K1 from `fhe_sorting_tpu_torch/csrc`;
+  2. build the CUDA kernels K1 (four-step NTT) and K2 (butterfly NTT) from
+     `fhe_sorting_tpu_torch/csrc`, one nvcc each, started together;
   3. hold K1 against its plain PyTorch version on the card, bit for bit:
      ring 2^17 (n1=256, n2=512) on limbs of the N=128 chain and on a whole
      ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape;
-  4. drive the main path: Context(ring 2^17, depth from the depth meter) ->
-     Keys -> Evaluator -> StagedDirectSort at N=128, a warm-up sort then a
+  4. hold K2 against its plain version the same way (ring 2^17 on four limbs
+     and on a whole ciphertext, ring 2^12, ring 2^10) and against K1 on the
+     same planes; time K2, K1 and the plain butterfly, forward and inverse;
+  5. drive the staged path: Context(ring 2^17, depth from the depth meter)
+     -> Keys -> Evaluator -> StagedDirectSort at N=128, a warm-up sort then a
      timed one, decrypt, and require max error < 0.01 against np.sort and a
-     K1 launch count > 0 for the main path.
+     K1 launch count > 0 for the timed sort;
+  6. drive the per-op path the same way on a butterfly context:
+     DirectSort(ev, 128).sort over the full key set, and require K2
+     launches > 0 and K1 launches == 0 for the timed sort.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
+
+Bounds in the JSON record: `bound_ms` is the least time the card could take
+for the function, a negacyclic NTT of the planes, whatever algorithm a kernel
+chose: the larger of the bytes it must move (data in, data out, one [L, n]
+twiddle table) over the card's 3.35 TB/s and the (n/2) log2(n) butterflies a
+plane, ten 32-bit integer operations each, over 67 T op/s (the published
+float32 rate of the CUDA cores, a multiply-add counted as two; no separate
+integer rate is published, and integer multiply-add runs no faster).  K1 and
+K2 compute the same function, so they share one bound.  `form_ops_ms` is the
+arithmetic of the kernel's own algorithm over the same rate: the four-step
+form of K1 does n (n1 + n2) multiply-adds a plane, far more than the function
+needs, and that excess is the kernel's to answer for, not part of its bound.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -24,6 +44,10 @@ import time
 
 import numpy as np
 import torch
+
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+N, RING = 128, 1 << 17
 
 
 def _sync():
@@ -42,30 +66,93 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _check_k1(fs_ntt, ntt_plain, x, tabs, limbs, label: str) -> int:
-    """K1 forward and inverse against the plain version; returns the max
-    absolute difference (0 when bit-exact) and checks the round trip."""
-    fwd = fs_ntt.four_step(x, tabs, limbs, inverse=False)
-    inv = fs_ntt.four_step(fwd, tabs, limbs, inverse=True)
+def _check(name: str, kernel, plain, x, label: str) -> int:
+    """kernel(x, inverse) forward and inverse against plain(x, inverse);
+    returns the max absolute difference (0 when bit-exact) and checks the
+    round trip."""
+    fwd = kernel(x, False)
+    inv = kernel(fwd, True)
     _sync()
-    err = max(int((fwd - ntt_plain(x, tabs, limbs, False)).abs().max()),
-              int((inv - ntt_plain(fwd, tabs, limbs, True)).abs().max()))
+    err = max(int((fwd - plain(x, False)).abs().max()),
+              int((inv - plain(fwd, True)).abs().max()))
     if err != 0 or not torch.equal(inv, x):
-        raise AssertionError(f"K1 disagrees with its plain version ({label}): max |diff| {err}")
-    print(f"# K1 == plain, forward and inverse, and intt(ntt(x)) == x: {label}")
+        raise AssertionError(f"{name} disagrees with its plain version ({label}): max |diff| {err}")
+    print(f"# {name} == plain, forward and inverse, and intt(ntt(x)) == x: {label}")
     return err
+
+
+def _rand_residues(gen, shape, p):
+    return torch.remainder(torch.randint(0, 1 << 62, shape, generator=gen, device=p.device,
+                                         dtype=torch.int64), p)
+
+
+def _ops_ms(ops: float) -> float:
+    return ops / CUDA_CORE_OPS_PER_S * 1e3
+
+
+def _ntt_bound(planes: int, limbs: int, n: int):
+    """(ms, "bytes" or "operations"): the least time for a negacyclic NTT of
+    `planes` int64 planes of n residues over `limbs` primes."""
+    by_bytes = (2 * planes * n * 8 + limbs * n * 8) / HBM_BYTES_PER_S * 1e3
+    # a butterfly: one product, its reduction (two more), an add and a subtract
+    # with their conditional corrections: ten 32-bit integer operations
+    by_ops = _ops_ms(10.0 * planes * (n // 2) * (n.bit_length() - 1))
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations"), by_ops
+
+
+def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi):
+    """A warm-up sort, then a timed one, both through the entry point `sort`;
+    every kernel's count is set to 0 just before the timed sort and read just
+    after, and the error is that sort's.  A third sort, uncounted, runs the
+    entry point's two phases by hand for their seconds."""
+    ct = keys.encrypt(vals)
+    t0 = time.time()
+    sort(ct)
+    _sync()
+    print(f"# {label}: warm-up sort {time.time() - t0:.2f}s")
+    for mod in counters:
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = sort(ct)
+    _sync()
+    total = time.time() - t0
+    counts = [mod.launches for mod in counters]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = keys.decrypt(out, N)
+    err = float(np.abs(got - np.sort(vals)).max())
+    print(f"# {label} N={N}: sort {total:.3f}s; output level {out.level}, "
+          f"{out.num_limbs} limbs")
+    print(f"# {label}: max sort error {err:.3e}; peak device memory {peak:.2f} GiB ({smi})")
+    if not np.all(np.isfinite(got)) or got.shape != (N,):
+        raise AssertionError(f"{label}: sort output is not N finite values")
+    if not err < 0.01:
+        raise AssertionError(f"{label}: sort error {err} >= 0.01")
+    t0 = time.time()
+    rank = phase1(ct)
+    _sync()
+    t1 = time.time()
+    again = phase2(rank, ct)
+    _sync()
+    t2 = time.time()
+    if not torch.equal(again.data, out.data):
+        raise AssertionError(f"{label}: the two phases by hand differ from the entry point")
+    print(f"# {label}, a further sort by phase: constructRank {t1 - t0:.3f}s, "
+          f"rotationIndexCheck {t2 - t1:.3f}s, total {t2 - t0:.3f}s")
+    return counts, total
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu
+    from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu
     from fhe_sorting_tpu_torch.core import primes as primes_mod
     from fhe_sorting_tpu_torch.core.context import CkksParams, Context
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
-    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig
+    from fhe_sorting_tpu_torch.models.direct_sort import DirectSort, rotation_indices_direct_sort
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
     from fhe_sorting_tpu_torch.parallel.direct_staged import (
         StagedDirectSort, scan_rotation_indices)
     from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
@@ -79,108 +166,166 @@ def main() -> int:
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    # -- phase 2: build K1 ---------------------------------------------------
+    # -- phase 2: build K1 and K2 ----------------------------------------------
     t0 = time.time()
+    cuda_build.build(["fs_ntt", "bf_ntt"])
     fs_ntt.load()
-    print(f"# K1 build + load: {time.time() - t0:.2f}s")
-    if fs_ntt.build_log:
-        print("# " + fs_ntt.build_log.strip().replace("\n", "\n# "))
+    bf_ntt.load()
+    print(f"# K1 + K2 build (in parallel) + load: {time.time() - t0:.2f}s")
+    for name, (secs, report) in cuda_build.reports.items():
+        print(f"# nvcc {name}.cu: {secs:.2f}s")
+        print("# " + report.strip().replace("\n", "\n# "))
 
     # -- phase 3: K1 against its plain version ---------------------------------
-    N, ring = 128, 1 << 17
     cn, dg, df = direct_sort_sign_cfg(N)
     cfg = SignConfig(CompositeSignConfig(cn, dg, df))
-    depth = measure_direct_sort_depth(N, ring, cfg)["mult_depth"]
+    depth = measure_direct_sort_depth(N, RING, cfg)["mult_depth"]
+    assert depth == measure_direct_sort_depth(N, RING, cfg, staged=False)["mult_depth"]
+    params = dict(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2, base_limbs=4, dnum=3)
     t0 = time.time()
-    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, scale_bits=56, comp=2,
-                             base_limbs=4, dnum=3), device=dev)
+    ctx = Context(CkksParams(**params))
     ctx_s = time.time() - t0
-    assert ctx.ntt_impl == "mxu", ctx.ntt_impl
-    print(f"# context: ring 2^17, depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}, "
-          f"{ctx_s:.1f}s")
+    assert ctx.device == dev and ctx.ntt_impl == "mxu", (ctx.device, ctx.ntt_impl)
+    Lq, Ltot = ctx.num_q, ctx.num_q + ctx.num_sp
+    print(f"# four-step context: ring 2^17, depth {depth}, Lq={Lq}, K={ctx.num_sp}, {ctx_s:.1f}s")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    tabs = ctx.tables
-    n1, n2 = ntt_mxu.split_n(ring)
-
-    def rand_planes(B, limbs):
-        p = tabs.p[limbs]                          # [L, 1, 1]
-        r = torch.randint(0, 1 << 62, (B, len(limbs), n1, n2), generator=gen,
-                          device=dev, dtype=torch.int64)
-        return torch.remainder(r, p)
-
-    few = torch.tensor([0, 1, ctx.num_q - 1, ctx.num_q + ctx.num_sp - 1],
-                       dtype=torch.int64, device=dev)
-    err = _check_k1(fs_ntt, ntt_mxu.ntt_plain, rand_planes(2, few), tabs, few,
-                    "ring 2^17, B=2, 4 limbs (active and special)")
+    fs = ctx.tables
+    n1, n2 = ntt_mxu.split_n(RING)
+    few = torch.tensor([0, 1, Lq - 1, Ltot - 1], dtype=torch.int64, device=dev)
     active = ctx.active_limbs(0)
-    x = rand_planes(2, active)
-    err = max(err, _check_k1(fs_ntt, ntt_mxu.ntt_plain, x, tabs, active,
-                             f"ring 2^17, B=2, L={ctx.num_q} (a full ciphertext)"))
+
+    def k1(limbs, t=fs):
+        return (lambda x, inv: fs_ntt.four_step(x, t, limbs, inv),
+                lambda x, inv: ntt_mxu.ntt_plain(x, t, limbs, inv))
+
+    k1_err = _check("K1", *k1(few), _rand_residues(gen, (2, 4, n1, n2), fs.p[few]),
+                    "ring 2^17, B=2, 4 limbs (active and special)")
+    x4 = _rand_residues(gen, (2, Lq, n1, n2), fs.p[active])
+    k1_err = max(k1_err, _check("K1", *k1(active), x4,
+                                f"ring 2^17, B=2, L={Lq} (a full ciphertext)"))
     small_primes = primes_mod.ntt_primes(4096, 28, 3)
     small = ntt_mxu.build_fs_tables(small_primes, 4096, dev)
-    xs = torch.remainder(torch.randint(0, 1 << 62, (2, 3, 64, 64), generator=gen, device=dev),
-                         small.p)
-    err = max(err, _check_k1(fs_ntt, ntt_mxu.ntt_plain, xs, small, None, "ring 2^12, B=2, L=3"))
+    k1_err = max(k1_err, _check("K1", *k1(None, small),
+                                _rand_residues(gen, (2, 3, 64, 64), small.p),
+                                "ring 2^12, B=2, L=3"))
+    k1_ms = _time_ms(lambda: fs_ntt.four_step(x4, fs, active, False), 10)
+    k1_plain_ms = _time_ms(lambda: ntt_mxu.ntt_plain(x4, fs, active, False), 3)
+    k1_inv_ms = _time_ms(lambda: fs_ntt.four_step(x4, fs, active, True), 10)
 
-    k1_ms = _time_ms(lambda: fs_ntt.four_step(x, tabs, active, False), 10)
-    plain_ms = _time_ms(lambda: ntt_mxu.ntt_plain(x, tabs, active, False), 3)
-    k1_inv_ms = _time_ms(lambda: fs_ntt.four_step(x, tabs, active, True), 10)
-    print(f"# K1 forward NTT [2, {ctx.num_q}, 2^17]: kernel {k1_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; inverse kernel {k1_inv_ms:.3f} ms ({smi})")
-    del x
+    # -- phase 4: K2 against its plain version and against K1 ------------------
+    t0 = time.time()
+    ctx2 = Context(CkksParams(**params, ntt_impl="butterfly"))
+    ctx2_s = time.time() - t0
+    assert ctx2.ntt_impl == "butterfly" and ctx2.all_primes == ctx.all_primes
+    print(f"# butterfly context: same chain, {ctx2_s:.1f}s")
+    bf = ctx2.tables
 
-    # -- phase 4: the main path ------------------------------------------------
-    fs_ntt.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    def k2(limbs, t=bf):
+        return (lambda x, inv: bf_ntt.butterfly(x, t, limbs, inv),
+                lambda x, inv: ntt.butterfly_plain(x, t, limbs, inv))
+
+    k2_err = _check("K2", *k2(few), _rand_residues(gen, (2, 4, RING), bf.p[few]),
+                    "ring 2^17, B=2, 4 limbs (active and special)")
+    x3 = x4.reshape(2, Lq, RING)
+    k2_err = max(k2_err, _check("K2", *k2(active), x3,
+                                f"ring 2^17, B=2, L={Lq} (a full ciphertext)"))
+    for ring, bits in ((1 << 12, 28), (1 << 10, 28)):
+        t_small = ntt.build_device_tables(primes_mod.ntt_primes(ring, bits, 3), ring, dev)
+        launches = len(bf_ntt.passes(ring.bit_length() - 1))
+        k2_err = max(k2_err, _check(
+            "K2", *k2(None, t_small), _rand_residues(gen, (2, 3, ring), t_small.p),
+            f"ring 2^{ring.bit_length() - 1}, B=2, L=3 ({launches} launch per transform)"))
+    fwd2 = bf_ntt.butterfly(x3, bf, active, False)
+    fwd1 = fs_ntt.four_step(x4, fs, active, False).reshape(2, Lq, RING)
+    back1 = fs_ntt.four_step(fwd2.reshape(2, Lq, n1, n2), fs, active, True).reshape(2, Lq, RING)
+    if not (torch.equal(fwd1, fwd2) and torch.equal(back1, x3)):
+        raise AssertionError("K2 and K1 disagree on the same [2, Lq, 2^17] planes")
+    print(f"# K2 == K1 on [2, {Lq}, 2^17]: same bit-reversed evaluation order, "
+          f"and K1's inverse undoes K2's forward")
+    del fwd1, fwd2, back1
+
+    k2_ms = _time_ms(lambda: bf_ntt.butterfly(x3, bf, active, False), 20)
+    k2_inv_ms = _time_ms(lambda: bf_ntt.butterfly(x3, bf, active, True), 20)
+    k2_plain_ms = _time_ms(lambda: ntt.butterfly_plain(x3, bf, active, False), 2)
+    k2_plain_inv_ms = _time_ms(lambda: ntt.butterfly_plain(x3, bf, active, True), 2)
+    shape = f"[2, {Lq}, 2^17]"
+    print(f"# K1 forward NTT {shape}: kernel {k1_ms:.3f} ms, plain four-step "
+          f"{k1_plain_ms:.3f} ms; inverse kernel {k1_inv_ms:.3f} ms ({smi})")
+    print(f"# K2 forward NTT {shape}: kernel {k2_ms:.3f} ms, plain butterfly "
+          f"{k2_plain_ms:.3f} ms ({smi})")
+    print(f"# K2 inverse NTT {shape}: kernel {k2_inv_ms:.3f} ms, plain butterfly "
+          f"{k2_plain_inv_ms:.3f} ms ({smi})")
+
+    # the least time the card could take for one forward transform of x: K1
+    # and K2 compute the same function, so the bound is one
+    bound, k2_form_ms = _ntt_bound(2 * Lq, Lq, RING)
+    k1_form_ms = _ops_ms(2.0 * 2 * Lq * RING * (n1 + n2))
+    print(f"# bound for one forward transform of {shape}, K1 and K2 alike: {bound[0]:.3f} ms "
+          f"by {bound[1]}; the arithmetic of each form at the CUDA cores' rate: "
+          f"K1 {k1_form_ms:.3f} ms, K2 {k2_form_ms:.3f} ms ({smi})")
+    del x3, x4, small
+    torch.cuda.empty_cache()
+
+    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
+
+    # -- phase 5: the staged path (four-step context, K1) ----------------------
     t0 = time.time()
     keys = Keys.generate(ctx, seed=0)
-    keys.gen_rotation_keys(sorted(scan_rotation_indices(N, ring)))
-    ev = Evaluator(ctx, keys)
-    srt = StagedDirectSort(ev, N, cfg)
+    keys.gen_rotation_keys(sorted(scan_rotation_indices(N, RING)))
+    srt = StagedDirectSort(Evaluator(ctx, keys), N, cfg)
     _sync()
-    keys_s = time.time() - t0
-    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
-    ct = keys.encrypt(vals)
+    print(f"# staged: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s")
+    (k1_launches, k2_stray), staged_s = _run_sort(
+        "staged", keys, vals, srt, srt.construct_rank, srt.index_check,
+        (fs_ntt, bf_ntt), smi)
+    print(f"# staged: K1 launches {k1_launches}, K2 launches {k2_stray}; "
+          f"stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
+    if k1_launches <= 0 or k2_stray != 0:
+        raise AssertionError("the staged path must launch K1 and not K2")
+    del srt, keys, ctx, fs, k1
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    def sort():
-        t0 = time.time()
-        rank = srt.construct_rank(ct)
-        _sync()
-        t1 = time.time()
-        out = srt.index_check(rank, ct)
-        _sync()
-        return out, t1 - t0, time.time() - t1
+    # -- phase 6: the per-op path (butterfly context, K2) ----------------------
+    t0 = time.time()
+    keys = Keys.generate(ctx2, seed=0)
+    steps = sorted(rotation_indices_direct_sort(N, RING))
+    keys.gen_rotation_keys(steps)
+    ev = Evaluator(ctx2, keys)
+    srt = DirectSort(ev, N)
+    _sync()
+    print(f"# per-op: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    (k1_stray, k2_launches), per_op_s = _run_sort(
+        "per-op", keys, vals,
+        lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
+        lambda ct: srt.construct_rank(ct, SignFunc.CompositeSign, cfg),
+        srt.rotation_index_check_n, (fs_ntt, bf_ntt), smi)
+    print(f"# per-op: K2 launches {k2_launches}, K1 launches {k1_stray}; "
+          f"over the three sorts: {srt.rot.stats}")
+    if k2_launches <= 0 or k1_stray != 0:
+        raise AssertionError("the per-op butterfly path must launch K2 and not K1")
+    print(f"# sorts side by side: staged on K1 {staged_s:.3f}s, per-op on K2 {per_op_s:.3f}s "
+          f"({smi})")
 
-    out, w_cr, w_ic = sort()
-    print(f"# warm-up sort: constructRank {w_cr:.2f}s, rotationIndexCheck {w_ic:.2f}s")
-    srt.verbose = True
-    out, t_cr, t_ic = sort()
-    launches = fs_ntt.launches
-    got = keys.decrypt(out, N)
-    sort_err = float(np.abs(got - np.sort(vals)).max())
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    print(f"# setup: context {ctx_s:.2f}s, keys ({len(keys.rot)} rotation + relin) "
-          f"{keys_s:.2f}s")
-    print(f"# sort N={N}: constructRank {t_cr:.3f}s, rotationIndexCheck {t_ic:.3f}s, "
-          f"total {t_cr + t_ic:.3f}s; output level {out.level}, {out.num_limbs} limbs")
-    print(f"# max sort error {sort_err:.3e}; K1 launches on the main path {launches}; "
-          f"peak device memory {peak_gb:.2f} GiB ({smi})")
-    print(f"# stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
-    if not np.all(np.isfinite(got)) or got.shape != (N,):
-        raise AssertionError("sort output is not N finite values")
-    if not sort_err < 0.01:
-        raise AssertionError(f"sort error {sort_err} >= 0.01")
-    if launches <= 0:
-        raise AssertionError("the main path launched K1 no time")
-
-    print(json.dumps({"kernels": [{
-        "name": "fs_ntt (four-step NTT, K1)", "route": "cuda",
-        "source": "fhe_sorting_tpu_torch/csrc/fs_ntt.cu",
-        "replaces": "fhe_sorting_tpu/core/pallas_fs_ntt.py:97",
-        "launches": launches, "max_abs_err": err,
-        "ms": k1_ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",
+         "source": "fhe_sorting_tpu_torch/csrc/fs_ntt.cu",
+         "replaces": "fhe_sorting_tpu/core/pallas_fs_ntt.py:97",
+         "launches": k1_launches, "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": bound[0], "bound_by": bound[1], "form_ops_ms": k1_form_ms,
+         "library_ms": None},
+        {"name": "bf_ntt (butterfly NTT, K2)", "route": "cuda",
+         "source": "fhe_sorting_tpu_torch/csrc/bf_ntt.cu",
+         "replaces": "fhe_sorting_tpu/core/pallas_ntt.py:66",
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": bound[0], "bound_by": bound[1], "form_ops_ms": k2_form_ms,
+         "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

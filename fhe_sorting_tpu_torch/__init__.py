@@ -3,16 +3,18 @@
 A port of `fhe_sorting_tpu` (JAX/Pallas) that keeps its algorithms and its
 exact integer semantics: given the same keys, ciphertexts and tables, every
 operation returns bit-identical limb planes.  Residues are held as int64
-tensors (every prime is below 2^31, so a product fits in 63 bits).  The
-four-step NTT runs as a hand-written CUDA kernel (`csrc/fs_ntt.cu`) for
-tensors on a GPU and as plain PyTorch for tensors on the CPU.
+tensors (every prime is below 2^31, so a product fits in 63 bits).  Both
+NTTs run as hand-written CUDA kernels for tensors on a GPU (the four-step
+NTT `csrc/fs_ntt.cu`, the butterfly NTT `csrc/bf_ntt.cu`) and as plain
+PyTorch for tensors on the CPU.  Entry points run on the first CUDA card
+unless the caller asks for the CPU (`Context(params, device="cpu")`).
 
 Layout (mirrors `fhe_sorting_tpu`):
   core/      CKKS runtime: modular arithmetic, NTTs, context, keys, evaluator
-  ops/       sign and Chebyshev polynomial evaluation
-  models/    DirectSort mask generators and rotation sets
+  ops/       sign, comparison, Chebyshev evaluation, the rotation engine
+  models/    DirectSort (per-op), its mask generators and rotation sets
   parallel/  the staged DirectSort
-  utils/     sinc coefficients, parameter registry, depth meter
+  utils/     sinc coefficients, parameter registry, depth meter, profiler run
   csrc/      CUDA sources, built at first use into `_build/`
 """
 

@@ -17,6 +17,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from .ntt import resolve_device
+
 
 @dataclass(frozen=True)
 class Ciphertext:
@@ -38,10 +40,11 @@ class Ciphertext:
 
     @classmethod
     def from_numpy(cls, data, level: int, sdeg: int, slots: int,
-                   device="cpu") -> "Ciphertext":
+                   device=None) -> "Ciphertext":
         """A ciphertext from residue planes held as numpy (e.g. a JAX
-        package ciphertext's `np.asarray(ct.data)`)."""
-        arr = torch.from_numpy(np.asarray(data).astype(np.int64)).to(device)
+        package ciphertext's `np.asarray(ct.data)`), on `device` (None:
+        the first CUDA card; pass the context's device)."""
+        arr = torch.from_numpy(np.asarray(data).astype(np.int64)).to(resolve_device(device))
         return cls(arr, level, sdeg, slots)
 
 

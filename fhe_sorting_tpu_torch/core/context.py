@@ -5,7 +5,8 @@ Decimal scale chain, the rescale and key-switch plans and the automorphism
 bookkeeping are the reference's, so both packages build the same chain from
 the same parameters.  Differences:
 
-  * every table lives on `Context.device` as int64;
+  * every table lives on `Context.device` as int64; the device defaults
+    to the first CUDA card, and the CPU has to be asked for;
   * key-switch plans hold the CRT base-extension factors as residues
     (`ntt_mxu.mod_matmul` splits them itself) rather than s8 digit planes;
   * limb subsets are int64 index tensors into the full-chain tables
@@ -13,7 +14,8 @@ the same parameters.  Differences:
     sliced or concatenated per call;
   * `ntt_impl="auto"` picks the four-step NTT with the CUDA kernel K1 when
     the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
-    butterfly otherwise.
+    butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
+    CPU).
 """
 
 from __future__ import annotations
@@ -145,9 +147,11 @@ class KeySwitchPlan:
 class Context:
     """Parameters, prime chain and device tables of one CKKS instance."""
 
-    def __init__(self, params: CkksParams, device="cpu"):
+    def __init__(self, params: CkksParams, device=None):
+        """`device=None` is the first CUDA card (an error where there is
+        none); pass "cpu" to run on the CPU."""
         self.params = params
-        self.device = torch.device(device)
+        self.device = nttm.resolve_device(device)
         self.q_primes, self._scales_dec = _choose_prime_chain(params)
         self.sp_primes = list(primes_mod.ntt_primes(
             params.ring_n, params.special_bits,
@@ -168,13 +172,14 @@ class Context:
                     and ntt_mxu.supported(n, ntt_mxu.split_n(n)[0])
                     else "butterfly")
         self.ntt_impl = impl
+        host = nttm.build_host_tables(tuple(self.all_primes), n)
+        self._host_psi_rev, self._host_ipsi_rev, self._host_ninv = host
         if impl == "mxu":
             self.tables = ntt_mxu.build_fs_tables(tuple(self.all_primes), n, self.device)
         else:
-            self.tables = nttm.build_device_tables(tuple(self.all_primes), n, self.device)
+            self.tables = nttm.build_device_tables(tuple(self.all_primes), n,
+                                                   self.device, host=host)
         self.pc = PrimeConsts(self.tensor(np.asarray(self.all_primes)[:, None]))
-        self._host_psi_rev, self._host_ipsi_rev, self._host_ninv = (
-            nttm.build_host_tables(tuple(self.all_primes), n))
 
         self._limb_cache = {}
         self.rescale_plans = [self._build_rescale_plan(d)

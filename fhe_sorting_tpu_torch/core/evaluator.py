@@ -1,16 +1,17 @@
 """Homomorphic evaluation ops over int64 limb planes (the main-path surface).
 
 Port of `fhe_sorting_tpu/core/evaluator.py`: add/sub/negate, ct*pt, ct*ct
-with relinearisation, rescale, level alignment, rotations by Galois gather,
-the on-device plaintext roll of `mult_plain_at` and the batched linear
-combination `combo`.  Every op runs eagerly on `ctx.device` and returns the
+with relinearisation, rescale, level alignment, rotations and conjugation
+by Galois gather (direct, and hoisted over one shared ModUp), the on-device
+plaintext roll of `mult_plain_at` and the batched linear combination
+`combo`.  Every op runs eagerly on `ctx.device` and returns the
 same canonical residues as the reference.
 
 Key switching is hybrid: ModUp (INTT, CRT base extension per digit as an
 exact modular matmul, NTT of every digit in one batched call), the inner
 product with the key, then ModDown (division by P).  Every NTT goes through
-`core/ntt.py`, which sends the four-step path to the CUDA kernel K1 on a
-GPU.  Limb subsets are index tensors cached on the context, so no table is
+`core/ntt.py`, which on a GPU launches the CUDA kernel of the context's
+tables: K1 (four-step) or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
 sliced or copied per op.
 """
 
@@ -324,17 +325,49 @@ class Evaluator:
 
     # -- rotations ---------------------------------------------------------
 
+    def _rot_key(self, g: int) -> KeySwitchKey:
+        assert g in self.keys.rot, f"missing rotation key for galois {g}"
+        return self.keys.rot[g]
+
+    def _automorphism(self, a: Ciphertext, g: int) -> Ciphertext:
+        ksk = self._rot_key(g)
+        d = a.data[..., self.ctx.galois_perm(g)]
+        e0, e1 = self._keyswitch_core(d[1], a.level, ksk)
+        c0 = add_mod(d[0], e0, self.ctx.p_active(a.level))
+        return Ciphertext(torch.stack([c0, e1]), a.level, a.sdeg, a.slots)
+
     def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
         """Left slot-rotation by r (negative = right)."""
         if r % (self.ctx.params.ring_n // 2) == 0:
             return a
         self.op_stats[("rot", a.level)] += 1
+        return self._automorphism(a, self.ctx.galois_element_rot(r))
+
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        self.op_stats[("rot", a.level)] += 1
+        return self._automorphism(a, 2 * self.ctx.params.ring_n - 1)
+
+    def rotate_precompute(self, a: Ciphertext) -> torch.Tensor:
+        """Hoisted ModUp of c1: the extended digits [dnum, Ll+K, n] that
+        every `rotate_hoisted` of `a` shares."""
+        self.op_stats[("rot_pre", a.level)] += 1
+        return self._modup(a.data[1], a.level)
+
+    def rotate_hoisted(self, a: Ciphertext, pre: torch.Tensor, r: int) -> Ciphertext:
+        """Rotation over a shared precompute: sigma_g(ModUp(x)) =
+        ModUp(sigma_g(x)) up to gadget-annihilated extension noise, so the
+        permutation applies to the extended digits (active limbs and
+        specials alike)."""
+        if r % (self.ctx.params.ring_n // 2) == 0:
+            return a
+        self.op_stats[("rot_hoisted", a.level)] += 1
         g = self.ctx.galois_element_rot(r)
-        assert g in self.keys.rot, f"missing rotation key for galois {g}"
-        d = a.data[..., self.ctx.galois_perm(g)]
-        e0, e1 = self._keyswitch_core(d[1], a.level, self.keys.rot[g])
-        c0 = add_mod(d[0], e0, self.ctx.p_active(a.level))
-        return Ciphertext(torch.stack([c0, e1]), a.level, a.sdeg, a.slots)
+        ksk = self._rot_key(g)
+        perm = self.ctx.galois_perm(g)
+        acc0, acc1 = self._inner_product(pre[..., perm], a.level, ksk)
+        e = self._moddown(torch.stack([acc0, acc1]), a.level)
+        c0 = add_mod(a.data[0][..., perm], e[0], self.ctx.p_active(a.level))
+        return Ciphertext(torch.stack([c0, e[1]]), a.level, a.sdeg, a.slots)
 
     # -- batched linear combinations ---------------------------------------
 

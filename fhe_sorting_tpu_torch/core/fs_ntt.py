@@ -8,75 +8,33 @@ Replaces the Pallas TPU kernel `fhe_sorting_tpu/core/pallas_fs_ntt.py:_kernel`
   * a tensor on a CUDA device launches the kernel twice (the two matmul
     passes) on the current stream, or raises.  Nothing falls back.
 
-The kernel is compiled with nvcc at first use into `_build/` beside this
-package (a shared library with a plain C interface, loaded with ctypes).
+The kernel is compiled with nvcc at first use (`core/cuda_build.py`).
 `launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from dataclasses import fields
 
 import torch
 
+from . import cuda_build
 from .ntt_mxu import FourStepTables, ntt_plain
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "fs_ntt.cu")
-_BUILD = os.path.join(_PKG, "_build")
 _TILE = 64          # the kernel's output tile (rows and cols)
 
-_lock = threading.Lock()
-_lib = None
 launches = 0
-build_seconds = None   # set when this process compiled the kernel
-build_log = ""         # nvcc's -Xptxas -v report (registers, spills)
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the four-step CUDA kernel cannot be built")
-    return path
 
 
 def load():
     """Build (once per source version) and load the kernel library."""
-    global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            tag = hashlib.sha1(f.read()).hexdigest()[:12]
-        so = os.path.join(_BUILD, f"libfs_ntt_{tag}.so")
-        if not os.path.exists(so):
-            os.makedirs(_BUILD, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.time()
-            proc = subprocess.run(
-                [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                 "-Xptxas", "-v", "-o", tmp, _SRC],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-            os.replace(tmp, so)
-            build_seconds = time.time() - t0
-            build_log = proc.stderr
-        lib = ctypes.CDLL(so)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.fs_modmm.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
-                                 ci, ci, ci, ci, ci, vp]
-        lib.fs_modmm.restype = ci
-        _lib = lib
-        return lib
+    lib = cuda_build.load("fs_ntt")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fs_modmm.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp,
+                             ci, ci, ci, ci, ci, vp]
+    lib.fs_modmm.restype = ci
+    return lib
 
 
 def _check(x: torch.Tensor, t: FourStepTables, limbs: torch.Tensor):

@@ -82,16 +82,16 @@ class Keys:
             P = np.uint64(p)
             b[i] = ((P - a[i]) * s_eval[i] + e_eval[i]) % P
         keys = cls(ctx=ctx, s_coeffs=s.astype(np.int8), s_eval=s_eval, pk=(b, a))
-        s_dev = keys._s_dev
-        keys.relin = keys._gen_ksk(mulmod(s_dev, s_dev, ctx.pc.p), rng)
+        keys.gen_relin_key(rng)
         return keys
 
     @classmethod
     def from_numpy(cls, ctx: Context, s_coeffs, s_eval, pk_b, pk_a,
-                   relin_kb, relin_ka, rot=None) -> "Keys":
-        """Keys from numpy arrays; `rot` maps galois element -> (kb, ka)."""
+                   relin_kb, relin_ka, rot=None, conj=None) -> "Keys":
+        """Keys from numpy arrays; `rot` maps galois element -> (kb, ka),
+        `conj` is the conjugation key's (kb, ka)."""
         dev = ctx.tensor
-        return cls(
+        keys = cls(
             ctx=ctx, s_coeffs=np.asarray(s_coeffs, dtype=np.int8),
             s_eval=np.asarray(s_eval, dtype=np.uint64),
             pk=(np.asarray(pk_b, dtype=np.uint64), np.asarray(pk_a, dtype=np.uint64)),
@@ -99,6 +99,9 @@ class Keys:
             rot={int(g): KeySwitchKey(dev(kb), dev(ka))
                  for g, (kb, ka) in (rot or {}).items()},
         )
+        if conj is not None:
+            keys.rot[2 * ctx.params.ring_n - 1] = KeySwitchKey(dev(conj[0]), dev(conj[1]))
+        return keys
 
     def _gadget_residues(self) -> np.ndarray:
         """Per-digit hybrid gadget residues [dnum, Lq+K] (host bigints)."""
@@ -144,18 +147,34 @@ class Keys:
         kb = add_mod(kb, mulmod(gres[:, :, None], target, p), p)
         return KeySwitchKey(kb=kb, ka=a)
 
-    def gen_rotation_keys(self, steps):
-        """Keys for the given slot-rotation steps, drawn from ONE persistent
-        generator across calls (a fixed seed per call would reuse `a` for
-        different galois targets and leak the secret)."""
-        if getattr(self, "_rot_rng", None) is None:
-            self._rot_rng = np.random.default_rng(2)
+    def gen_relin_key(self, rng=None):
+        s_dev = self._s_dev
+        self.relin = self._gen_ksk(mulmod(s_dev, s_dev, self.ctx.pc.p),
+                                   rng or np.random.default_rng(1))
+
+    def gen_rotation_keys(self, steps, seed: int | None = None):
+        """Keys for the given slot-rotation steps (one at a time is fine:
+        the lazy key pool of `ops/rotation.py` does that), drawn from ONE
+        persistent generator across calls (a fixed seed per call would reuse
+        `a` for different galois targets and leak the secret).  An explicit
+        `seed` reseeds the stream (tests only)."""
+        if seed is not None or getattr(self, "_rot_rng", None) is None:
+            self._rot_rng = np.random.default_rng(2 if seed is None else seed)
         for r in steps:
             g = self.ctx.galois_element_rot(r)
             if g in self.rot or g == 1:
                 continue
             s_g = self._s_dev[:, self.ctx.galois_perm(g)]
             self.rot[g] = self._gen_ksk(s_g, self._rot_rng)
+
+    def gen_conj_key(self, seed: int = 3):
+        g = 2 * self.ctx.params.ring_n - 1
+        if g not in self.rot:
+            s_g = self._s_dev[:, self.ctx.galois_perm(g)]
+            self.rot[g] = self._gen_ksk(s_g, np.random.default_rng(seed))
+
+    def available_rotations(self):
+        return set(self.rot.keys())
 
     # -- encrypt / decrypt ------------------------------------------------
 
@@ -183,6 +202,10 @@ class Keys:
         return Ciphertext.from_numpy(c, level, 1, s, ctx.device)
 
     def decrypt(self, ct: Ciphertext, num_values: int | None = None) -> np.ndarray:
+        return self.decrypt_complex(ct, num_values).real
+
+    def decrypt_complex(self, ct: Ciphertext,
+                        num_values: int | None = None) -> np.ndarray:
         ctx = self.ctx
         Ll = ct.num_limbs
         qs = ctx.q_primes[:Ll]
@@ -193,6 +216,4 @@ class Keys:
             m_eval[i] = (data[0, i] + data[1, i] * self.s_eval[i]) % P64
         vals = crt_to_float_centered(_host_intt_all(ctx, m_eval), qs)
         out = decode_coeffs(vals, ctx.params.ring_n, ctx.scale(ct.level, ct.sdeg), ct.slots)
-        if num_values is not None:
-            out = out[:num_values]
-        return out.real
+        return out[:num_values] if num_values is not None else out

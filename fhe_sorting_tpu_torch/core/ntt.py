@@ -2,12 +2,15 @@
 
 Port of `fhe_sorting_tpu/core/ntt.py`.  The forward transform maps
 coefficient order to bit-reversed evaluation order (Cooley-Tukey with
-merged twiddles), the inverse maps back (Gentleman-Sande, then 1/n).  Both
-run in the constant-geometry form: every stage pairs (i, i + n/2) with
-(2i, 2i+1), so one loop body covers all log2(n) stages.
+merged twiddles), the inverse maps back (Gentleman-Sande, then 1/n).
 
-This butterfly is plain PyTorch.  A context uses it for rings too small for
-the four-step kernel (`core/ntt_mxu.py`, `core/fs_ntt.py`) and on the CPU.
+`ntt`/`intt` dispatch on the table type: `FourStepTables` run the four-step
+path (`core/ntt_mxu.py`, kernel K1), `NttTables` the butterfly.  A butterfly
+on a CUDA tensor launches the hand-written kernel K2 (`core/bf_ntt.py`) or
+raises; on a CPU tensor it runs `butterfly_plain` below, K2's plain PyTorch
+version, in the constant-geometry form: every stage pairs (i, i + n/2) with
+(2i, 2i+1), so one loop body covers all log2(n) stages, and lane i of stage
+s takes the twiddle psi_rev[2^s + (i mod 2^s)].
 
 Data layout: [..., L, n] int64, one prime per limb plane.  Every transform
 takes `limbs`, an int64 index tensor into the context's full tables (None
@@ -44,19 +47,31 @@ def pow_table(base: int, count: int, p: int) -> np.ndarray:
     return t[:count]
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: `None` means the first CUDA card,
+    and raises where there is none; the CPU has to be asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card by default; "
+                "pass device=\"cpu\" to run on the CPU")
+        return torch.device("cuda:0")
+    return torch.device(device)
+
+
 @dataclass(frozen=True)
 class NttTables:
     """Butterfly twiddles for a set of primes, int64 on the context device.
 
-    Stage s of the forward transform multiplies lane i by
-    psi_rev[2^s + (i mod 2^s)]; `cg_psi[s]` holds that vector.  The inverse
-    stages run s = logn-1 .. 0 and `cg_ipsi` is stored in that order.
+    `psi_rev[l, 2^s + g]` is the twiddle of group g in forward stage s (the
+    powers of psi in bit-reversed order), `ipsi_rev` the same for the
+    inverse.  The kernel K2 and its plain version read the same tables.
     """
 
     p: torch.Tensor          # [L, 1]
     n_inv: torch.Tensor      # [L, 1]
-    cg_psi: torch.Tensor     # [logn, L, n/2]
-    cg_ipsi: torch.Tensor    # [logn, L, n/2]
+    psi_rev: torch.Tensor    # [L, n]
+    ipsi_rev: torch.Tensor   # [L, n]
 
 
 def build_host_tables(prime_list, n: int):
@@ -74,19 +89,11 @@ def build_host_tables(prime_list, n: int):
     return psi_rev, ipsi_rev, n_inv
 
 
-def _cg_stack(tab: np.ndarray, n: int) -> np.ndarray:
-    """[L, n] twiddle table -> [logn, L, n/2] constant-geometry stages."""
-    logn = n.bit_length() - 1
-    L = tab.shape[0]
-    out = np.zeros((logn, L, n // 2), dtype=tab.dtype)
-    for s in range(logn):
-        m = 1 << s
-        out[s] = np.tile(tab[:, m : 2 * m], (1, (n // 2) // m))
-    return out
-
-
-def build_device_tables(prime_list, n: int, device="cpu") -> NttTables:
-    psi_rev, ipsi_rev, n_inv = build_host_tables(prime_list, n)
+def build_device_tables(prime_list, n: int, device=None, host=None) -> NttTables:
+    """Butterfly tables on `device` (None: the first CUDA card).  `host` takes
+    the result of `build_host_tables` where the caller has it already."""
+    device = resolve_device(device)
+    psi_rev, ipsi_rev, n_inv = host or build_host_tables(prime_list, n)
 
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x).astype(np.int64)).to(device)
@@ -94,49 +101,61 @@ def build_device_tables(prime_list, n: int, device="cpu") -> NttTables:
     return NttTables(
         p=dev(np.asarray(prime_list, dtype=np.int64)[:, None]),
         n_inv=dev(n_inv[:, None]),
-        cg_psi=dev(_cg_stack(psi_rev, n)),
-        cg_ipsi=dev(_cg_stack(ipsi_rev, n)[::-1]),
+        psi_rev=dev(psi_rev),
+        ipsi_rev=dev(ipsi_rev),
     )
 
 
-def ntt(a: torch.Tensor, t, limbs=None) -> torch.Tensor:
-    """Forward negacyclic NTT.  a: [..., L, n] coeff order -> bitrev eval.
-
-    Dispatches on the table type: `FourStepTables` runs the four-step path
-    (`core/ntt_mxu.py`), `NttTables` the butterfly below."""
-    if not isinstance(t, NttTables):
-        from .ntt_mxu import ntt_fs
-
-        return ntt_fs(a, t, limbs)
+def butterfly_plain(a: torch.Tensor, t: NttTables, limbs, inverse: bool) -> torch.Tensor:
+    """The butterfly NTT (or its inverse) in plain PyTorch, a: [..., L, n]."""
     *lead, L, n = a.shape
     h = n // 2
-    p, cg = (t.p, t.cg_psi) if limbs is None else (t.p[limbs], t.cg_psi[:, limbs])
+    logn = n.bit_length() - 1
+    tab = t.ipsi_rev if inverse else t.psi_rev
+    p, ninv = t.p, t.n_inv
+    if limbs is not None:
+        p, ninv, tab = p[limbs], ninv[limbs], tab[limbs]
+
+    def twiddle(y, s):
+        # lane i of y [..., L, n/2] times tab[2^s + (i mod 2^s)]
+        m = 1 << s
+        y = y.reshape(*lead, L, h // m, m)
+        return mulmod(y, tab[:, None, m : 2 * m], p[:, None]).reshape(*lead, L, h)
+
     x = a
-    for s in range(n.bit_length() - 1):
-        u = x[..., :h]
-        v = mulmod(x[..., h:], cg[s], p)
-        x = torch.stack([add_mod(u, v, p), sub_mod(u, v, p)], dim=-1).reshape(*lead, L, n)
-    return x
+    if not inverse:
+        for s in range(logn):
+            u = x[..., :h]
+            v = twiddle(x[..., h:], s)
+            x = torch.stack([add_mod(u, v, p), sub_mod(u, v, p)], dim=-1).reshape(*lead, L, n)
+        return x
+    for s in reversed(range(logn)):
+        z = x.reshape(*lead, L, h, 2)
+        u, v = z[..., 0], z[..., 1]
+        x = torch.cat([add_mod(u, v, p), twiddle(sub_mod(u, v, p), s)], dim=-1)
+    return mulmod(x, ninv, p)
+
+
+def _transform(a: torch.Tensor, t, limbs, inverse: bool) -> torch.Tensor:
+    if isinstance(t, NttTables):
+        from . import bf_ntt
+
+        *lead, L, n = a.shape
+        x = a.reshape(-1, L, n).contiguous()
+        return bf_ntt.butterfly(x, t, limbs, inverse).reshape(*lead, L, n)
+    from .ntt_mxu import intt_fs, ntt_fs
+
+    return (intt_fs if inverse else ntt_fs)(a, t, limbs)
+
+
+def ntt(a: torch.Tensor, t, limbs=None) -> torch.Tensor:
+    """Forward negacyclic NTT.  a: [..., L, n] coeff order -> bitrev eval."""
+    return _transform(a, t, limbs, inverse=False)
 
 
 def intt(a: torch.Tensor, t, limbs=None) -> torch.Tensor:
     """Inverse NTT.  a: [..., L, n] bitrev eval order -> coeff order."""
-    if not isinstance(t, NttTables):
-        from .ntt_mxu import intt_fs
-
-        return intt_fs(a, t, limbs)
-    *lead, L, n = a.shape
-    h = n // 2
-    if limbs is None:
-        p, cg, ninv = t.p, t.cg_ipsi, t.n_inv
-    else:
-        p, cg, ninv = t.p[limbs], t.cg_ipsi[:, limbs], t.n_inv[limbs]
-    x = a
-    for s in range(n.bit_length() - 1):
-        z = x.reshape(*lead, L, h, 2)
-        u, v = z[..., 0], z[..., 1]
-        x = torch.cat([add_mod(u, v, p), mulmod(sub_mod(u, v, p), cg[s], p)], dim=-1)
-    return mulmod(x, ninv, p)
+    return _transform(a, t, limbs, inverse=True)
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ import torch
 
 from . import primes as primes_mod
 from .modmath import host_shoup, mulmod
-from .ntt import bit_reverse_indices, pow_table
+from .ntt import bit_reverse_indices, pow_table, resolve_device
 
 
 def split_n(n: int) -> tuple[int, int]:
@@ -70,7 +70,9 @@ class FourStepTables:
         return FourStepTables(*(getattr(self, f.name)[limbs] for f in fields(self)))
 
 
-def build_fs_tables(prime_list, n: int, device="cpu") -> FourStepTables:
+def build_fs_tables(prime_list, n: int, device=None) -> FourStepTables:
+    """Four-step tables on `device` (None: the first CUDA card)."""
+    device = resolve_device(device)
     n1, n2 = split_n(n)
     # The reference's digit-matmul recombination needs 4*128^2*max(n1,n2) < p,
     # and p < 2^30 keeps its balanced digits in int32.  The port keeps the

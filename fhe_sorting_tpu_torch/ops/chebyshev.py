@@ -158,3 +158,8 @@ def chebyshev_fit(fn, degree: int) -> np.ndarray:
     ck = (np.fft.fft(ext * 1.0) * ph).real[:n] / n
     ck[0] *= 0.5
     return ck
+
+
+def eval_chebyshev_function(ev, fn, x: Ciphertext, degree: int) -> Ciphertext:
+    """Fit `fn` on [-1, 1] at `degree` and evaluate the series on x."""
+    return ChebyshevPS(ev).evaluate(x, chebyshev_fit(fn, degree))

@@ -1,8 +1,8 @@
-"""Metadata-only depth metering of the staged DirectSort.
+"""Metadata-only depth metering of DirectSort.
 
 Port of `fhe_sorting_tpu/utils/depth_meter.py`, metering the port's own
-`StagedDirectSort`: its stage functions run against a `MeterEvaluator`
-that implements the evaluator's (level, sdeg) transition rules on data-free
+sorts (`StagedDirectSort`, or the per-op `DirectSort` and its hybrid
+placement): they run against a `MeterEvaluator` that implements the evaluator's (level, sdeg) transition rules on data-free
 ciphertexts - no keys, no NTTs, milliseconds.  `max_level` after a run is
 the least `mult_depth` a real context needs.
 
@@ -11,7 +11,7 @@ Transition rules (as `core/evaluator.py`):
   mult by pt/scalar: rescale first if sdeg==2, out sdeg 2
   add/sub         : align levels and sdeg (1 -> 2 via a scalar)
   rescale         : sdeg 2 -> 1, level += 1   (the depth-consuming op)
-  rotations       : metadata no-ops
+  rotations/conj  : metadata no-ops
 """
 
 from __future__ import annotations
@@ -33,12 +33,25 @@ class _MeterCtx:
     def __init__(self, ring_n: int):
         self.params = _MeterParams(ring_n)
 
+    def galois_element_rot(self, r: int) -> int:  # composer compatibility
+        return pow(5, r % (self.params.ring_n // 2), 2 * self.params.ring_n)
+
+
+class _AllRot:
+    def __contains__(self, g) -> bool:   # composer key probes
+        return True
+
+
+class _AllKeys:
+    rot = _AllRot()
+
 
 class MeterEvaluator:
     """Evaluator facade tracking only (level, sdeg)."""
 
     def __init__(self, ring_n: int):
         self.ctx = _MeterCtx(ring_n)
+        self.keys = _AllKeys()
         self.op_stats: Counter = Counter()
         self.max_level = 0
         self.mults = 0
@@ -49,6 +62,10 @@ class MeterEvaluator:
         self.max_level = max(self.max_level, lvl)
         return Ciphertext(None, lvl, 1, a.slots)
 
+    def level_reduce(self, a: Ciphertext, target: int) -> Ciphertext:
+        assert target >= a.level
+        return Ciphertext(None, target, a.sdeg, a.slots)
+
     def adjust_level(self, a: Ciphertext, target: int) -> Ciphertext:
         if a.sdeg == 2:
             a = self.rescale(a)
@@ -57,7 +74,7 @@ class MeterEvaluator:
         if a.level < target:
             # scalar mult to sdeg 2, rescale, then free limb drops
             a = self.rescale(Ciphertext(None, a.level, 2, a.slots))
-            a = Ciphertext(None, target, a.sdeg, a.slots)
+            a = self.level_reduce(a, target)
         return a
 
     def _align(self, a: Ciphertext, b: Ciphertext):
@@ -82,6 +99,15 @@ class MeterEvaluator:
 
     def rsub(self, b, a: Ciphertext) -> Ciphertext:
         return self.add(a, b)
+
+    def negate(self, a: Ciphertext) -> Ciphertext:
+        return a
+
+    def add_many(self, cts) -> Ciphertext:
+        out = cts[0]
+        for c in cts[1:]:
+            out = self.add(out, c)
+        return out
 
     def mult(self, a: Ciphertext, b) -> Ciphertext:
         self.mults += 1
@@ -119,14 +145,34 @@ class MeterEvaluator:
         self.rotations += 1
         return a
 
+    def conjugate(self, a: Ciphertext) -> Ciphertext:
+        return a
 
-def measure_direct_sort_depth(N: int, ring_n: int, sign_cfg=None) -> dict:
-    """Required mult_depth (+ op counts) of the staged DirectSort."""
-    from ..ops.sign import SignConfig
+    def rotate_precompute(self, a: Ciphertext):
+        return None
+
+    def rotate_hoisted(self, a: Ciphertext, pre, r: int) -> Ciphertext:
+        self.rotations += 1
+        return a
+
+
+def measure_direct_sort_depth(N: int, ring_n: int, sign_cfg=None,
+                              hybrid: bool = False, staged: bool = True) -> dict:
+    """Required mult_depth (+ op counts) of DirectSort at (N, ring, cfg):
+    the staged sort by default, the per-op `DirectSort.sort` with
+    `staged=False`, its hybrid placement `sort_hybrid` with `hybrid=True`."""
+    from ..models.direct_sort import DirectSort
+    from ..ops.sign import SignConfig, SignFunc
     from ..parallel.direct_staged import StagedDirectSort
 
     ev = MeterEvaluator(ring_n)
-    out = StagedDirectSort(ev, N, sign_cfg or SignConfig())(Ciphertext(None, 0, 1, N))
+    cfg = sign_cfg or SignConfig()
+    ct = Ciphertext(None, 0, 1, N)
+    if staged and not hybrid:
+        out = StagedDirectSort(ev, N, cfg)(ct)
+    else:
+        srt = DirectSort(ev, N)
+        out = (srt.sort_hybrid if hybrid else srt.sort)(ct, SignFunc.CompositeSign, cfg)
     # decrypt headroom: an sdeg-2 result at the bottom carries scale^2, which
     # exceeds the base limbs' modulus - reserve one more level
     return {

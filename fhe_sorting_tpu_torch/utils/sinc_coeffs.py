@@ -1,9 +1,10 @@
-"""Chebyshev coefficients of the doubled-sinc blind-rotation indicator.
+"""Chebyshev coefficients of the sinc blind-rotation indicators.
 
-Port of `fhe_sorting_tpu/utils/sinc_coeffs.py` (the part the staged
-DirectSort uses): a high-degree Chebyshev fit of
+Port of `fhe_sorting_tpu/utils/sinc_coeffs.py` (the parts DirectSort uses):
+high-degree Chebyshev fits of
 
-    doubled_sinc_N(x) = sinc(2N x) + sinc(2N x + 1/2)
+    sinc_N(x)         = sinc(2N x)                     (the 2N and hybrid placements)
+    doubled_sinc_N(x) = sinc(2N x) + sinc(2N x + 1/2)  (the N placement)
 
 on [-1, 1] by a DCT, with negligible terms trimmed, cached per (N, stretch).
 """
@@ -32,6 +33,20 @@ def _vector_fit(fn, degree: int) -> np.ndarray:
 def _np_scaled_sinc(xs: np.ndarray, N: int) -> np.ndarray:
     t = np.pi * N * xs
     return np.where(np.abs(xs) < 1e-10, 1.0, np.sin(t) / np.where(t == 0, 1, t))
+
+
+@functools.lru_cache(maxsize=32)
+def sinc_coefficients(N: int, degree: int = FIT_DEGREE, tol: float = 1e-6,
+                      stretch: float = 1.0) -> tuple:
+    """Even scaled-sinc series.  `stretch` > 1 fits f(stretch * y) on y in
+    [-1, 1]: the caller divides the argument by `stretch`, so that rank
+    noise cannot push the Chebyshev argument outside [-1, 1], where T_k
+    explodes."""
+    c = _vector_fit(lambda xs: _np_scaled_sinc(stretch * xs, 2 * N), degree)
+    c[1::2] = 0.0                      # even function: odd terms are noise
+    c[np.abs(c) < tol] = 0.0
+    nz = np.nonzero(c)[0]
+    return tuple(c[: nz[-1] + 1]) if len(nz) else (0.0,)
 
 
 @functools.lru_cache(maxsize=32)

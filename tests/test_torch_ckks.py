@@ -41,13 +41,13 @@ def _eq(t, j, what=""):
 @pytest.mark.parametrize("name", sorted(PARAMS))
 def test_context_tables_match_jax(name, impl):
     jc = JContext(JParams(**PARAMS[name], ntt_impl=impl))
-    tc = Context(CkksParams(**PARAMS[name], ntt_impl=impl))
+    tc = Context(CkksParams(**PARAMS[name], ntt_impl=impl), device="cpu")
     assert tc.ntt_impl == jc.ntt_impl == impl
     assert tc.q_primes == jc.q_primes and tc.sp_primes == jc.sp_primes
     assert tc._scales_dec == jc._scales_dec
     _eq(tc.pc.p, jc.pc.p)
     if impl == "butterfly":
-        for f in ("p", "n_inv", "cg_psi", "cg_ipsi"):
+        for f in ("p", "n_inv", "psi_rev", "ipsi_rev"):
             _eq(getattr(tc.tables, f), getattr(jc.tables, f), f)
     else:
         _eq(tc.tables.p, jc.tables.p)
@@ -80,7 +80,7 @@ def pair():
     jc = JContext(JParams(**params))
     jk = JKeys.generate(jc, seed=0)
     jk.gen_rotation_keys([1, 3])
-    tc = Context(CkksParams(**params))
+    tc = Context(CkksParams(**params), device="cpu")
     tk = Keys.from_numpy(
         tc, jk.s_coeffs, jk.s_eval, jk.pk[0], jk.pk[1],
         np.asarray(jk.relin.kb), np.asarray(jk.relin.ka),
@@ -91,7 +91,7 @@ def pair():
 def test_keys_and_encrypt_match_jax():
     params = PARAMS["comp2"]
     jk = JKeys.generate(JContext(JParams(**params)), seed=3)
-    tk = Keys.generate(Context(CkksParams(**params)), seed=3)
+    tk = Keys.generate(Context(CkksParams(**params), device="cpu"), seed=3)
     np.testing.assert_array_equal(tk.s_coeffs, jk.s_coeffs)
     np.testing.assert_array_equal(tk.s_eval, jk.s_eval)
     np.testing.assert_array_equal(tk.pk[0], jk.pk[0])
@@ -108,7 +108,7 @@ def test_keys_and_encrypt_match_jax():
 def test_generated_keys_decrypt(impl):
     """The port's own key-switch keys (device generator) relinearize and
     rotate correctly."""
-    ctx = Context(CkksParams(**PARAMS["comp2"], ntt_impl=impl))
+    ctx = Context(CkksParams(**PARAMS["comp2"], ntt_impl=impl), device="cpu")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys([2])
     ev = Evaluator(ctx, keys)
@@ -150,7 +150,7 @@ def test_evaluator_op_matches_jax(pair, op):
         ja, jb = jk.encrypt(x, level=level, seed=1), jk.encrypt(y, level=level, seed=2)
         if sdeg == 2:
             ja, jb = jev.mult(ja, 0.5), jev.mult(jb, 0.75)
-        ta, tb = (Ciphertext.from_numpy(np.asarray(c.data), c.level, c.sdeg, c.slots)
+        ta, tb = (Ciphertext.from_numpy(np.asarray(c.data), c.level, c.sdeg, c.slots, "cpu")
                   for c in (ja, jb))
         jouts, touts = OPS[op](jev, ja, jb), OPS[op](tev, ta, tb)
         if not isinstance(jouts, list):

@@ -80,12 +80,12 @@ def test_staged_sort_n8_matches_jax():
     jsrt = JStagedDirectSort(JEvaluator(jctx, jkeys, jit_ops=False), N, jcfg)
     jout = jsrt.index_check(jsrt.construct_rank(jct), jct)
 
-    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth))
+    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth), device="cpu")
     keys = Keys.from_numpy(
         ctx, jkeys.s_coeffs, jkeys.s_eval, jkeys.pk[0], jkeys.pk[1],
         np.asarray(jkeys.relin.kb), np.asarray(jkeys.relin.ka),
         rot={g: (np.asarray(k.kb), np.asarray(k.ka)) for g, k in jkeys.rot.items()})
-    ct = Ciphertext.from_numpy(np.asarray(jct.data), jct.level, jct.sdeg, jct.slots)
+    ct = Ciphertext.from_numpy(np.asarray(jct.data), jct.level, jct.sdeg, jct.slots, "cpu")
     srt = StagedDirectSort(Evaluator(ctx, keys), N, SignConfig(CompositeSignConfig(3, 2, 2)))
     out = srt(ct)
 

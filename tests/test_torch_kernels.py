@@ -1,16 +1,20 @@
-"""The port's hand-written CUDA kernel K1 and the port's import hygiene.
+"""The port's hand-written CUDA kernels K1 and K2, and its import hygiene.
 
-K1 against its plain PyTorch version needs a CUDA device and nvcc: marked
-`cuda`, it skips elsewhere (the card runs it, and `chip_smoke.py` runs the
-same comparison at the main path's shapes).  The import test runs here:
-the port must import no JAX, which only a fresh interpreter can show
-(tests/conftest.py imports JAX)."""
+The kernels against their plain PyTorch versions need a CUDA device and
+nvcc: marked `cuda`, they skip elsewhere (the card runs them, and
+`chip_smoke.py` runs the same comparisons at the main path's shapes).  The
+import tests run here: the port must import neither JAX nor the JAX package,
+which only a fresh interpreter can show (tests/conftest.py imports JAX)."""
 
+import os
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.cuda
@@ -35,15 +39,71 @@ def test_k1_matches_plain_on_card(ring, limbs):
     assert torch.equal(inv, x)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring,bits,subset", [
+    (1 << 10, 28, None), (1 << 12, 30, None), (1 << 13, 28, (2, 0)),
+    (1 << 14, 30, None), (1 << 17, 28, None), (1 << 17, 30, (3, 1, 0)),
+])
+def test_k2_matches_plain_on_card(ring, bits, subset):
+    """K2 forward and inverse against the plain butterfly, bit for bit, in
+    its one-launch (n <= 2^13) and two-launch forms, with and without a limb
+    subset, and the round trip."""
+    if not torch.cuda.is_available():
+        pytest.skip("K2 is a CUDA kernel: needs a CUDA device")
+    from fhe_sorting_tpu_torch.core import bf_ntt, ntt, primes
+
+    ps = primes.ntt_primes(ring, bits, 4)
+    t = ntt.build_device_tables(ps, ring, "cuda")
+    limbs = None if subset is None else torch.tensor(subset, device="cuda")
+    L = 4 if subset is None else len(subset)
+    p = t.p if limbs is None else t.p[limbs]
+    gen = torch.Generator(device="cuda").manual_seed(ring)
+    x = torch.remainder(torch.randint(0, 1 << 62, (2, L, ring), generator=gen,
+                                      device="cuda"), p)
+    x[0, 0, :4] = torch.tensor([0, 1, int(p[0]) - 1, 0], device="cuda")   # edge residues
+    before = bf_ntt.launches
+    fwd = bf_ntt.butterfly(x, t, limbs, inverse=False)
+    inv = bf_ntt.butterfly(fwd, t, limbs, inverse=True)
+    torch.cuda.synchronize()
+    assert bf_ntt.launches == before + 2 * len(bf_ntt.passes(ring.bit_length() - 1))
+    assert torch.equal(fwd, ntt.butterfly_plain(x, t, limbs, False))
+    assert torch.equal(inv, ntt.butterfly_plain(fwd, t, limbs, True))
+    assert torch.equal(inv, x)
+    # the routing: ntt/intt with butterfly tables launch K2 on a CUDA tensor
+    before = bf_ntt.launches
+    assert torch.equal(ntt.ntt(x, t, limbs), fwd)
+    assert bf_ntt.launches > before
+    with pytest.raises(ValueError):
+        bf_ntt.butterfly(x.to(torch.int32), t, limbs, inverse=False)
+
+
 def test_port_imports_no_jax():
+    """In a fresh interpreter, importing every module of the port (and
+    `chip_smoke`) loads neither JAX nor any module of the JAX package."""
     code = (
-        "import sys\n"
-        "import fhe_sorting_tpu_torch\n"
-        "import fhe_sorting_tpu_torch.core.fs_ntt\n"
-        "import fhe_sorting_tpu_torch.parallel.direct_staged\n"
-        "import fhe_sorting_tpu_torch.utils.depth_meter\n"
-        "import fhe_sorting_tpu_torch.utils.params_registry\n"
-        "from fhe_sorting_tpu_torch.core.evaluator import Evaluator\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "import importlib, pkgutil, sys\n"
+        "import fhe_sorting_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'fhe_sorting_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'fhe_sorting_tpu.')))\n"
+        "assert not bad, bad\n"
     )
-    subprocess.run([sys.executable, "-c", code], check=True)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=_ROOT)
+
+
+def test_port_sources_name_no_jax_import():
+    """No source of the port, nor `chip_smoke.py`, has an import statement
+    that names JAX or the JAX package (docstrings may cite counterparts)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fhe_sorting_tpu)(\.|\s|$)")
+    files = [os.path.join(_ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(_ROOT, "fhe_sorting_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            hits = [line for line in f if pat.match(line)]
+        assert not hits, (path, hits)
