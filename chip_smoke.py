@@ -4,14 +4,18 @@
 
 Phases (each failure raises, and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels K1 (four-step NTT) and K2 (butterfly NTT) from
+  2. build the CUDA kernels K1 (four-step NTT on the s8 tensor cores) and K2
+     (butterfly NTT in one pass through a thread-block cluster) from
      `fhe_sorting_tpu_torch/csrc`, one nvcc each, started together;
   3. hold K1 against its plain PyTorch version on the card, bit for bit:
      ring 2^17 (n1=256, n2=512) on limbs of the N=128 chain and on a whole
      ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape;
   4. hold K2 against its plain version the same way (ring 2^17 on four limbs
      and on a whole ciphertext, ring 2^12, ring 2^10) and against K1 on the
-     same planes; time K2, K1 and the plain butterfly, forward and inverse;
+     same planes; time K2, K1 and the plain butterfly, forward and inverse,
+     and both kernels at one small transform of the sort, [1, K, 2^17] on the
+     special limbs (ModDown's inverse NTT); print how many clusters (planes)
+     of K2 the card holds at once;
   5. drive the staged path: Context(ring 2^17, depth from the depth meter)
      -> Keys -> Evaluator -> StagedDirectSort at N=128, a warm-up sort then a
      timed one, decrypt, and require max error < 0.01 against np.sort and a
@@ -187,7 +191,9 @@ def main() -> int:
     ctx_s = time.time() - t0
     assert ctx.device == dev and ctx.ntt_impl == "mxu", (ctx.device, ctx.ntt_impl)
     Lq, Ltot = ctx.num_q, ctx.num_q + ctx.num_sp
-    print(f"# four-step context: ring 2^17, depth {depth}, Lq={Lq}, K={ctx.num_sp}, {ctx_s:.1f}s")
+    print(f"# four-step context: ring 2^17, depth {depth}, Lq={Lq}, K={ctx.num_sp}, {ctx_s:.1f}s; "
+          f"K1's digit planes and packed twiddles for the {Ltot} primes: "
+          f"{ctx.tables.kern.nbytes() / 2**30:.3f} GiB beside the int64 tables")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -213,6 +219,10 @@ def main() -> int:
     k1_ms = _time_ms(lambda: fs_ntt.four_step(x4, fs, active, False), 10)
     k1_plain_ms = _time_ms(lambda: ntt_mxu.ntt_plain(x4, fs, active, False), 3)
     k1_inv_ms = _time_ms(lambda: fs_ntt.four_step(x4, fs, active, True), 10)
+    special = torch.arange(Lq, Ltot, dtype=torch.int64, device=dev)
+    xs = _rand_residues(gen, (1, ctx.num_sp, n1, n2), fs.p[special])
+    k1_small_ms = [_time_ms(lambda: fs_ntt.four_step(xs, fs, special, inv), 20)
+                   for inv in (False, True)]
 
     # -- phase 4: K2 against its plain version and against K1 ------------------
     t0 = time.time()
@@ -233,10 +243,9 @@ def main() -> int:
                                 f"ring 2^17, B=2, L={Lq} (a full ciphertext)"))
     for ring, bits in ((1 << 12, 28), (1 << 10, 28)):
         t_small = ntt.build_device_tables(primes_mod.ntt_primes(ring, bits, 3), ring, dev)
-        launches = len(bf_ntt.passes(ring.bit_length() - 1))
         k2_err = max(k2_err, _check(
             "K2", *k2(None, t_small), _rand_residues(gen, (2, 3, ring), t_small.p),
-            f"ring 2^{ring.bit_length() - 1}, B=2, L=3 ({launches} launch per transform)"))
+            f"ring 2^{ring.bit_length() - 1}, B=2, L=3 (one block per plane)"))
     fwd2 = bf_ntt.butterfly(x3, bf, active, False)
     fwd1 = fs_ntt.four_step(x4, fs, active, False).reshape(2, Lq, RING)
     back1 = fs_ntt.four_step(fwd2.reshape(2, Lq, n1, n2), fs, active, True).reshape(2, Lq, RING)
@@ -250,6 +259,13 @@ def main() -> int:
     k2_inv_ms = _time_ms(lambda: bf_ntt.butterfly(x3, bf, active, True), 20)
     k2_plain_ms = _time_ms(lambda: ntt.butterfly_plain(x3, bf, active, False), 2)
     k2_plain_inv_ms = _time_ms(lambda: ntt.butterfly_plain(x3, bf, active, True), 2)
+    xs = xs.reshape(1, ctx.num_sp, RING)
+    k2_small_ms = [_time_ms(lambda: bf_ntt.butterfly(xs, bf, special, inv), 20)
+                   for inv in (False, True)]
+    logn = RING.bit_length() - 1
+    c_log = bf_ntt.cluster_log(logn)
+    print(f"# K2 at ring 2^17: one launch per transform, clusters of {1 << c_log} blocks; "
+          f"cudaOccupancyMaxActiveClusters {bf_ntt.max_active_clusters(logn, c_log)}")
     shape = f"[2, {Lq}, 2^17]"
     print(f"# K1 forward NTT {shape}: kernel {k1_ms:.3f} ms, plain four-step "
           f"{k1_plain_ms:.3f} ms; inverse kernel {k1_inv_ms:.3f} ms ({smi})")
@@ -258,6 +274,10 @@ def main() -> int:
     print(f"# K2 inverse NTT {shape}: kernel {k2_inv_ms:.3f} ms, plain butterfly "
           f"{k2_plain_inv_ms:.3f} ms ({smi})")
 
+    small_shape = f"[1, {ctx.num_sp}, 2^17] on the special limbs"
+    print(f"# K1 NTT {small_shape}: forward {k1_small_ms[0]:.3f} ms, inverse {k1_small_ms[1]:.3f} ms ({smi})")
+    print(f"# K2 NTT {small_shape}: forward {k2_small_ms[0]:.3f} ms, inverse {k2_small_ms[1]:.3f} ms ({smi})")
+
     # the least time the card could take for one forward transform of x: K1
     # and K2 compute the same function, so the bound is one
     bound, k2_form_ms = _ntt_bound(2 * Lq, Lq, RING)
@@ -265,7 +285,7 @@ def main() -> int:
     print(f"# bound for one forward transform of {shape}, K1 and K2 alike: {bound[0]:.3f} ms "
           f"by {bound[1]}; the arithmetic of each form at the CUDA cores' rate: "
           f"K1 {k1_form_ms:.3f} ms, K2 {k2_form_ms:.3f} ms ({smi})")
-    del x3, x4, small
+    del x3, x4, xs, small
     torch.cuda.empty_cache()
 
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N

@@ -65,13 +65,18 @@ class NttTables:
 
     `psi_rev[l, 2^s + g]` is the twiddle of group g in forward stage s (the
     powers of psi in bit-reversed order), `ipsi_rev` the same for the
-    inverse.  The kernel K2 and its plain version read the same tables.
+    inverse; the plain version reads these.  The kernel K2 reads
+    `psi_pack`/`ipsi_pack`, the same twiddles with their Shoup quotients,
+    w | floor(w 2^32 / p) << 32: two u32 in the 8 bytes of the int64.
     """
 
     p: torch.Tensor          # [L, 1]
     n_inv: torch.Tensor      # [L, 1]
     psi_rev: torch.Tensor    # [L, n]
     ipsi_rev: torch.Tensor   # [L, n]
+    psi_pack: torch.Tensor   # [L, n]
+    ipsi_pack: torch.Tensor  # [L, n]
+    lazy: bool = False       # every prime below 2^30: K2 may delay its reductions
 
 
 def build_host_tables(prime_list, n: int):
@@ -98,11 +103,20 @@ def build_device_tables(prime_list, n: int, device=None, host=None) -> NttTables
     def dev(x):
         return torch.from_numpy(np.ascontiguousarray(x).astype(np.int64)).to(device)
 
+    primes_col = np.asarray(prime_list, dtype=np.uint64)[:, None]
+
+    def pack(w):
+        # the bit pattern of (w, floor(w 2^32 / p)) as one int64
+        return dev((w | ((w << np.uint64(32)) // primes_col) << np.uint64(32)).view(np.int64))
+
     return NttTables(
-        p=dev(np.asarray(prime_list, dtype=np.int64)[:, None]),
+        p=dev(primes_col),
         n_inv=dev(n_inv[:, None]),
         psi_rev=dev(psi_rev),
         ipsi_rev=dev(ipsi_rev),
+        psi_pack=pack(psi_rev),
+        ipsi_pack=pack(ipsi_rev),
+        lazy=max(prime_list) < 2**30,
     )
 
 

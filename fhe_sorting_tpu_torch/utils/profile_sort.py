@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 CLASSES = (
-    ("K2 bf_pass_kernel", ("bf_pass_kernel",)),
+    ("K2 bf_cluster_kernel", ("bf_cluster_kernel",)),
     ("K1 modmm_kernel", ("modmm_kernel",)),
     ("fp64 GEMM (mod_matmul)", ("gemm", "cutlass", "cublas", "dgemm")),
     ("gather / index (Galois permutation, limb subsets)", ("index", "gather", "scatter")),

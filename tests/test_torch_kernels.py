@@ -6,6 +6,7 @@ nvcc: marked `cuda`, they skip elsewhere (the card runs them, and
 import tests run here: the port must import neither JAX nor the JAX package,
 which only a fresh interpreter can show (tests/conftest.py imports JAX)."""
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -18,42 +19,58 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ring,limbs", [(1 << 12, 3), (1 << 17, 4)])
-def test_k1_matches_plain_on_card(ring, limbs):
+@pytest.mark.parametrize("ring,limbs,batch,subset", [
+    (1 << 12, 3, 2, None), (1 << 17, 4, 2, None),
+    (1 << 12, 4, 1, None), (1 << 15, 4, 2, (3, 0, 2)), (1 << 17, 4, 1, (2, 1)),
+])
+def test_k1_matches_plain_on_card(ring, limbs, batch, subset):
+    """K1 forward and inverse against the plain four-step, bit for bit, with
+    its eight-warp and four-warp tiles, B = 1 and a limb subset, the edge
+    residues 0 and p - 1, and the round trip."""
     if not torch.cuda.is_available():
         pytest.skip("K1 is a CUDA kernel: needs a CUDA device")
     from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu, primes
 
-    ps = primes.ntt_primes(ring, 28, limbs)
+    ps = primes.ntt_primes(ring, 30 if ring >= 1 << 15 else 28, limbs)
     t = ntt_mxu.build_fs_tables(ps, ring, "cuda")
     n1, n2 = ntt_mxu.split_n(ring)
+    sel = None if subset is None else torch.tensor(subset, device="cuda")
+    p = t.p if sel is None else t.p[sel]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.remainder(torch.randint(0, 1 << 62, (2, limbs, n1, n2), generator=gen,
-                                      device="cuda"), t.p)
+    x = torch.remainder(torch.randint(0, 1 << 62, (batch, p.shape[0], n1, n2), generator=gen,
+                                      device="cuda"), p)
+    x[0, 0, 0, :4] = torch.tensor([0, 1, int(p[0]) - 1, 0], device="cuda")
+    x[0, -1] = p[-1] - 1                      # a whole plane of the largest residue
     before = fs_ntt.launches
-    fwd = fs_ntt.four_step(x, t, None, inverse=False)
-    inv = fs_ntt.four_step(fwd, t, None, inverse=True)
+    fwd = fs_ntt.four_step(x, t, sel, inverse=False)
+    inv = fs_ntt.four_step(fwd, t, sel, inverse=True)
+    torch.cuda.synchronize()
     assert fs_ntt.launches == before + 4
-    assert torch.equal(fwd, ntt_mxu.ntt_plain(x, t, None, False))
-    assert torch.equal(inv, ntt_mxu.ntt_plain(fwd, t, None, True))
+    assert torch.equal(fwd, ntt_mxu.ntt_plain(x, t, sel, False))
+    assert torch.equal(inv, ntt_mxu.ntt_plain(fwd, t, sel, True))
     assert torch.equal(inv, x)
+    with pytest.raises(ValueError):       # tables without the kernel-side copy: no fallback
+        fs_ntt.four_step(x, dataclasses.replace(t, kern=None), sel, inverse=False)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ring,bits,subset", [
     (1 << 10, 28, None), (1 << 12, 30, None), (1 << 13, 28, (2, 0)),
     (1 << 14, 30, None), (1 << 17, 28, None), (1 << 17, 30, (3, 1, 0)),
+    (1 << 12, 31, None), (1 << 15, 31, (1, 2)), (1 << 17, 31, None),
 ])
 def test_k2_matches_plain_on_card(ring, bits, subset):
-    """K2 forward and inverse against the plain butterfly, bit for bit, in
-    its one-launch (n <= 2^13) and two-launch forms, with and without a limb
-    subset, and the round trip."""
+    """K2 forward and inverse against the plain butterfly, bit for bit, on one
+    block (n <= 2^14) and on a cluster, one launch a transform either way,
+    with and without a limb subset, every cluster size the kernel accepts,
+    and the round trip."""
     if not torch.cuda.is_available():
         pytest.skip("K2 is a CUDA kernel: needs a CUDA device")
     from fhe_sorting_tpu_torch.core import bf_ntt, ntt, primes
 
     ps = primes.ntt_primes(ring, bits, 4)
     t = ntt.build_device_tables(ps, ring, "cuda")
+    assert t.lazy == (bits <= 30)
     limbs = None if subset is None else torch.tensor(subset, device="cuda")
     L = 4 if subset is None else len(subset)
     p = t.p if limbs is None else t.p[limbs]
@@ -65,10 +82,18 @@ def test_k2_matches_plain_on_card(ring, bits, subset):
     fwd = bf_ntt.butterfly(x, t, limbs, inverse=False)
     inv = bf_ntt.butterfly(fwd, t, limbs, inverse=True)
     torch.cuda.synchronize()
-    assert bf_ntt.launches == before + 2 * len(bf_ntt.passes(ring.bit_length() - 1))
-    assert torch.equal(fwd, ntt.butterfly_plain(x, t, limbs, False))
+    assert bf_ntt.launches == before + 2                  # one launch a transform
+    want_fwd = ntt.butterfly_plain(x, t, limbs, False)
+    assert torch.equal(fwd, want_fwd)
     assert torch.equal(inv, ntt.butterfly_plain(fwd, t, limbs, True))
     assert torch.equal(inv, x)
+    logn = ring.bit_length() - 1
+    assert bf_ntt.max_active_clusters(logn, bf_ntt.cluster_log(logn)) > 0
+    idx = torch.arange(L, device="cuda") if limbs is None else limbs
+    for c in range(bf_ntt.MAX_LOG_CLUSTER + 1):
+        if 1 + c <= logn - c <= bf_ntt.LOG_CHUNK:
+            assert torch.equal(bf_ntt._launch(x, t, idx, False, c), want_fwd)
+            assert torch.equal(bf_ntt._launch(want_fwd, t, idx, True, c), x)
     # the routing: ntt/intt with butterfly tables launch K2 on a CUDA tensor
     before = bf_ntt.launches
     assert torch.equal(ntt.ntt(x, t, limbs), fwd)
