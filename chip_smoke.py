@@ -23,6 +23,24 @@ Phases (each failure raises, and the script exits non-zero):
   6. drive the per-op path the same way on a butterfly context:
      DirectSort(ev, 128).sort over the full key set, and require K2
      launches > 0 and K1 launches == 0 for the timed sort.
+  7. serve on files (the slice's main path): a client writes the flagship
+     butterfly context, the per-op rotation key set and an encrypted input
+     into a fresh temporary directory; the secret-free server runs through
+     `fhe_sorting_tpu_torch.serving.sort_server.main`; the client decrypts
+     `out.npz`, and the error against np.sort must be below 0.01.  The input
+     is the tie-free vector of phases 5 and 6: the rank sort breaks no ties
+     (`tests/test_torch_direct_sort.py` pins what a tied input gives);
+  8. one bootstrap at ring 2^17 (comp=2, first_mod_bits=30, level budget
+     (3,3), every rotation through a RotationComposer with a lazy key pool):
+     the uniform-ternary-secret shape, a first refresh on an empty plaintext
+     memo (the bootstrap's time) and a second on a memo that holds every
+     plaintext, max error < 1e-2 on 2^16 values in [0, 1];
+  9. BitonicSort with bootstrapping at N=8, depth 42, sparse secret, max error
+     < 0.01 and at least one bootstrap fired;
+ 10. MEHP24 at N=64 (one 64 x 64 matrix in 4096 slots), depth 43, max error
+     < 0.01.
+Phases 7-10 run butterfly contexts at ring 2^17: each must launch K2 and
+never K1, with the counts set to 0 just before and read just after.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Bounds in the JSON record: `bound_ms` is the least time the card could take
@@ -42,8 +60,11 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -144,6 +165,356 @@ def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi):
     print(f"# {label}, a further sort by phase: constructRank {t1 - t0:.3f}s, "
           f"rotationIndexCheck {t2 - t1:.3f}s, total {t2 - t0:.3f}s")
     return counts, total
+
+
+def _release():
+    """Return the device memory of everything no longer referenced."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _counted(counters, fn):
+    """fn() with every kernel's count set to 0 just before and read just
+    after (synchronised); returns (result, seconds, counts)."""
+    for mod in counters:
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    _sync()
+    secs = time.time() - t0
+    return out, secs, [mod.launches for mod in counters]
+
+
+def _require_k2_only(label, counts):
+    k1, k2 = counts
+    print(f"# {label}: K2 launches {k2}, K1 launches {k1}")
+    if k2 <= 0 or k1 != 0:
+        raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
+    return k2
+
+
+def _phase7_serve(ctx2, keys, counters, smi):
+    """Serve the tie-free vector of phases 5 and 6 from files through the
+    server's entry point, and hold the decrypted output to max error < 0.01;
+    returns the K2 launches of the server's run."""
+    from fhe_sorting_tpu_torch.core import serialize
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.serving import sort_server
+
+    x = np.random.default_rng(0).permutation(N) / N + 0.5 / N
+    tmp = tempfile.mkdtemp(prefix="fhe_serve_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 2**30
+        need_gb = (len(keys.rot) + 1) * 2 * 3 * (ctx2.num_q + ctx2.num_sp) * RING * 4 / 2**30
+        print(f"# serve: temporary directory on a file system with {free_gb:.1f} GiB free; "
+              f"the key file needs {need_gb:.2f} GiB")
+        if free_gb < need_gb * 1.05:
+            raise RuntimeError("serve: not enough free space for the key file")
+        path = {k: os.path.join(tmp, v) for k, v in
+                dict(cc="cc.json", keys="keys.npz", inp="in.npz", out="out.npz").items()}
+        # -- the client: context and evaluation keys
+        serialize.save_context(path["cc"], ctx2)
+        t0 = time.time()
+        serialize.save_eval_keys(path["keys"], keys)
+        write_keys_s = time.time() - t0
+        # one key written both ways: why the archive is stored, not deflated
+        one = {"kb": serialize._to_u32(keys.relin.kb), "ka": serialize._to_u32(keys.relin.ka)}
+        t0 = time.time()
+        np.savez(os.path.join(tmp, "one_stored.npz"), **one)
+        t1 = time.time()
+        np.savez_compressed(os.path.join(tmp, "one_deflated.npz"), **one)
+        t2 = time.time()
+        sz = [os.path.getsize(os.path.join(tmp, f"one_{k}.npz")) / 2**20 for k in ("stored", "deflated")]
+        print(f"# serve: one key-switch key to a file: np.savez {t1 - t0:.2f}s, {sz[0]:.0f} MiB; "
+              f"np.savez_compressed {t2 - t1:.2f}s, {sz[1]:.0f} MiB ({smi})")
+        del one
+        n_rot = len(keys.rot)
+        # what decrypts the output stays with the client; every evaluation
+        # key, and the device memory they hold, goes
+        client = Keys(ctx=ctx2, s_coeffs=keys.s_coeffs, s_eval=keys.s_eval, pk=keys.pk)
+        keys.relin, keys.rot = None, {}
+        del keys
+        _release()
+        print(f"# serve: {n_rot} rotation keys + relin written in {write_keys_s:.2f}s; cc.json "
+              f"{os.path.getsize(path['cc'])} B, keys.npz {os.path.getsize(path['keys']) / 2**20:.0f} "
+              f"MiB ({smi})")
+
+        # -- the server, through its normal entry point; its loaders are
+        # wrapped to be timed and to show the key set it holds
+        seen, secs = {}, {}
+
+        def timed(name, fn):
+            def wrapper(*a, **kw):
+                t0 = time.time()
+                out = fn(*a, **kw)
+                _sync()
+                secs[name] = time.time() - t0
+                seen[name] = out
+                return out
+            return wrapper
+
+        names = ("load_context", "load_eval_keys", "load_ciphertext", "save_ciphertext")
+        originals = {name: getattr(sort_server, name) for name in names}
+        serialize.save_ciphertext(path["inp"], client.encrypt(x))
+        for name, fn in originals.items():
+            setattr(sort_server, name, timed(name, fn))
+        try:
+            _, total_s, counts = _counted(counters, lambda: sort_server.main([
+                "--cc", path["cc"], "--keys", path["keys"], "--input", path["inp"],
+                "--output", path["out"], "--n", str(N), "--algo", "direct"]))
+        finally:
+            for name, fn in originals.items():
+                setattr(sort_server, name, fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        server_keys = seen["load_eval_keys"]
+        if server_keys.s_eval is not None or server_keys.s_coeffs is not None:
+            raise AssertionError("serve: the server's key set holds a secret")
+        if len(server_keys.rot) != n_rot or seen["load_context"].ntt_impl != "butterfly":
+            raise AssertionError("serve: the files did not carry the keys or ntt_impl")
+        sort_s = total_s - sum(secs.values())
+        seen.clear()
+        del server_keys
+        _release()
+        # -- the client again
+        out = serialize.load_ciphertext(path["out"], ctx2.device)
+        got = client.decrypt(out, N)
+        err = float(np.abs(got - np.sort(x)).max())
+        print(f"# serve N={N}, ring 2^17: load context {secs['load_context']:.2f}s, load keys to "
+              f"the device {secs['load_eval_keys']:.2f}s, sort {sort_s:.2f}s, write output "
+              f"{secs['save_ciphertext']:.2f}s; in.npz {os.path.getsize(path['inp']) / 2**20:.1f} "
+              f"MiB, out.npz {os.path.getsize(path['out']) / 2**20:.1f} MiB; max sort error "
+              f"{err:.3e}; peak device memory {peak:.2f} GiB ({smi})")
+        if not np.all(np.isfinite(got)) or got.shape != (N,):
+            raise AssertionError("serve: output is not N finite values")
+        if not err < 0.01:
+            raise AssertionError(f"serve: sort error {err} >= 0.01")
+        return _require_k2_only("serve", counts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the EvalMod shapes of phases 8 and 9: K bounds the q0-multiple I of the
+# secret in use, the double-angle count keeps the fitted range K / 2^r at 32
+# (uniform) or 3.25 (sparse)
+BOOT_UNIFORM = dict(K=512.0, sin_degree=270, double_angle=4, asin_terms=3)
+BOOT_SPARSE = dict(K=13.0, sin_degree=64, double_angle=2, asin_terms=3)
+
+
+def _boot_env(depth, hamming, shape, budget, smi, label, pt_cache_bytes=None, n_cts=4):
+    """Context, keys (conjugation + the power-of-two basis), evaluator,
+    composer and Bootstrapper of one bootstrap configuration; the memory is
+    reckoned before anything is allocated.  `pt_cache_bytes` bounds the
+    evaluator's plaintext memo (None: its default)."""
+    from fhe_sorting_tpu_torch.core.bootstrap import Bootstrapper
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.ops.rotation import RotationComposer
+    from fhe_sorting_tpu_torch.utils import hbm_budget
+
+    t0 = time.time()
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
+                             base_limbs=4, first_mod_bits=30, secret_hamming=hamming,
+                             ntt_impl="butterfly"))
+    logqp = sum(np.log2(float(p)) for p in ctx.all_primes)
+    basis = sorted({1 << i for i in range(RING.bit_length() - 2)})
+    lazy = 8
+    # resident: the basis, the conjugation key, the lazy pool
+    report = hbm_budget.check_phase(ctx, len(basis) + 1 + lazy, n_cts, label=label)
+    print(f"# {label}: depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}, logQP={logqp:.0f}; "
+          f"reckoned before allocating: {report}")
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_conj_key()
+    ev = Evaluator(ctx, keys, **({} if pt_cache_bytes is None else
+                                 {"pt_cache_bytes": pt_cache_bytes}))
+    rot = RotationComposer(ev, basis, lazy_key_budget=lazy)
+    bs = Bootstrapper(ev, level_budget=budget, rot=rot, **shape)
+    keys.gen_rotation_keys(basis)
+    _sync()
+    print(f"# {label}: context, keys ({len(keys.rot)} resident) and the factored transforms "
+          f"{time.time() - t0:.1f}s; {len(bs.required_rotations())} distinct BSGS rotations, "
+          f"{sum(len(lt.diags) for lt in bs.c2s)} C2S diagonals")
+    return ctx, keys, ev, rot, bs, report
+
+
+def _bootstrap_once(counters, smi, label, depth, hamming, shape):
+    """Two refreshes of 2^16 values in [0, 1].  The first, on an empty
+    plaintext memo, is the bootstrap's time: it encodes every diagonal on the
+    host, as every refresh does under the evaluator's default memo, which holds
+    a fraction of one refresh's plaintexts.  The second shows what a memo
+    that holds them all (24 GiB here) saves.  Returns (max error, K2 launches)
+    of the second after checking everything but the error."""
+    ctx, keys, ev, rot, bs, report = _boot_env(depth, hamming, shape, (3, 3), smi, label,
+                                               pt_cache_bytes=24 << 30)
+    nh = RING // 2
+    z = np.random.default_rng(3).uniform(0, 1.0, nh)
+    ct_low = ev.level_reduce(keys.encrypt(z), depth - 1)
+    t0 = time.time()
+    bs.bootstrap(ct_low)
+    _sync()
+    cold_s = time.time() - t0
+    cold_pt = dict(ev.pt_stats)
+    print(f"# bootstrap ring 2^17, {nh} slots, first refresh (plaintext memo empty): {cold_s:.2f}s; "
+          f"memo {cold_pt['misses']} misses, {cold_pt['hits']} hits, {cold_pt['encode_s']:.2f}s of "
+          f"host encoding, {ev._pt_cache_used / 2**30:.2f} GiB held of "
+          f"{ev.pt_cache_bytes / 2**30:.0f} GiB ({smi})")
+    # seconds by stage of the second refresh (a synchronise after each)
+    stage_s = {"ModRaise": 0.0, "C2S": 0.0, "EvalMod": 0.0, "S2C": 0.0}
+
+    def staged(name, fn):
+        def wrapper(*a, **kw):
+            _sync()
+            t0 = time.time()
+            out = fn(*a, **kw)
+            _sync()
+            stage_s[name] += time.time() - t0
+            return out
+        return wrapper
+
+    bs._mod_raise = staged("ModRaise", bs._mod_raise)
+    bs._eval_mod = staged("EvalMod", bs._eval_mod)
+    for lt in bs.c2s:
+        lt.apply = staged("C2S", lt.apply)
+    for chain in bs._s2c_cache.values():
+        for lt in chain:
+            lt.apply = staged("S2C", lt.apply)
+    before = (rot.stats.rotations, rot.stats.composed, rot.stats.lazy_keygens)
+    ev.pt_stats.update(hits=0, misses=0, encode_s=0.0)
+    out, boot_s, counts = _counted(counters, lambda: bs.bootstrap(ct_low))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    try:
+        got = keys.decrypt(out, nh)
+    except OverflowError:            # noise beyond the modulus: an error of its own size
+        got = np.full(nh, np.inf)
+    err = np.abs(got - z)
+    rots, composed, lazy = (a - b for a, b in zip(
+        (rot.stats.rotations, rot.stats.composed, rot.stats.lazy_keygens), before))
+    print(f"# bootstrap, second refresh (memo holds every plaintext): {boot_s:.2f}s against "
+          f"{cold_s:.2f}s; level {ct_low.level} -> {out.level} (scale degree {out.sdeg}) of "
+          f"{depth}; max error {err.max():.3e}, mean {err.mean():.3e} ({smi})")
+    print("# bootstrap by stage (second refresh): "
+          + ", ".join(f"{k} {v:.2f}s" for k, v in stage_s.items())
+          + f"; rotations {rots}, composed {composed}, lazy keygens {lazy}")
+    print(f"# bootstrap: plaintext memo {ev.pt_stats['misses']} misses, {ev.pt_stats['hits']} hits, "
+          f"{ev.pt_stats['encode_s']:.2f}s of host encoding in the second refresh; peak device "
+          f"memory {peak:.2f} GiB measured, {report['used_gb']} GB reckoned for keys and "
+          f"ciphertexts ({smi})")
+    if not out.level + (out.sdeg == 2) <= depth - 2:
+        raise AssertionError(f"bootstrap: fewer than two levels left (level {out.level})")
+    if not out.level < ct_low.level:
+        raise AssertionError("bootstrap: the level was not refreshed")
+    return float(err.max()), _require_k2_only("bootstrap", counts)
+
+
+def _phase8_bootstrap(counters, smi):
+    """One bootstrap at ring 2^17.  The uniform-ternary-secret shape is the
+    asserted one; if it cannot meet 1e-2 at this ring, its error is reported
+    and the sparse-secret shape is run and asserted instead."""
+    # the uniform shape's refresh ends at level 30 (scale degree 2), the sparse
+    # shape's at 24: each depth leaves two levels
+    err, k2 = _bootstrap_once(counters, smi, "bootstrap (uniform ternary secret)", 33, None,
+                              BOOT_UNIFORM)
+    if not err < 1e-2:
+        print(f"# bootstrap: the uniform-secret shape reaches max error {err:.3e}, not 1e-2, at "
+              f"ring 2^17: the sparse-secret shape is the asserted one")
+        _release()
+        err, k2 = _bootstrap_once(counters, smi, "bootstrap (sparse secret, hamming 64)", 27, 64,
+                                  BOOT_SPARSE)
+    if not err < 1e-2:
+        raise AssertionError(f"bootstrap: max error {err} >= 1e-2")
+    return k2
+
+
+def _phase9_bitonic(counters, smi, n=8):
+    """BitonicSort with bootstrapping: sparse secret, dg=df=2, depth 42 (the
+    published recipe's 40 is sized for a budget-(2,2) refresh that ends near
+    level 20; the budget-(3,3) refresh used here ends at level 24)."""
+    from fhe_sorting_tpu_torch.models.bitonic import BitonicSort
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
+
+    depth = 42
+    # the evaluator's default plaintext memo: one refresh's plaintexts at this
+    # depth are over 24 GiB, and a memo smaller than that cyclic working set
+    # never hits, so a larger one would only take memory
+    ctx, keys, ev, rot, bs, _ = _boot_env(depth, 64, BOOT_SPARSE, (3, 3), smi,
+                                          "bitonic (sparse secret, hamming 64)")
+    keys.gen_rotation_keys([-(1 << i) for i in range(n.bit_length() - 1)])
+    fired = []
+
+    def bootstrap_fn(ct):
+        fired.append(ct.level)
+        return bs.bootstrap(ct, msg_scale_down=2.0)
+
+    # the refresh ends at level 24 (scale degree 2), one compare-and-swap stage
+    # costs at most 15 levels, and the next refresh spends two more on its
+    # pre-scale before it drops to the bottom: 24 + 15 + 2 = 41
+    srt = BitonicSort(ev, n, normalize=1.0, bootstrap_fn=bootstrap_fn, bootstrap_level=20,
+                      rot=rot)
+    cfg = SignConfig(CompositeSignConfig(3, 2, 2), mult_depth=depth)
+    x = np.random.default_rng(4).permutation(n) / n + 0.5 / n
+    out, secs, counts = _counted(
+        counters, lambda: srt.sort(keys.encrypt(x, slots=n), SignFunc.CompositeSign, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = keys.decrypt(out, n)
+    err = float(np.abs(got - np.sort(x)).max())
+    print(f"# bitonic N={n}, ring 2^17: {secs:.2f}s, bootstraps fired at levels {fired}, output "
+          f"level {out.level}; max sort error {err:.3e}; plaintext memo {ev.pt_stats}; "
+          f"lazy keygens {rot.stats.lazy_keygens}; peak device memory {peak:.2f} GiB ({smi})")
+    if not np.all(np.isfinite(got)) or got.shape != (n,):
+        raise AssertionError("bitonic: output is not N finite values")
+    if len(fired) < 1:
+        raise AssertionError("bitonic: no bootstrap fired")
+    if not err < 0.01:
+        raise AssertionError(f"bitonic: sort error {err} >= 0.01")
+    return _require_k2_only("bitonic", counts)
+
+
+def _phase10_mehp24(counters, smi, n=64):
+    """MEHP24 at one n x n matrix, driven from Python."""
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.models.mehp24 import Mehp24Sort
+    from fhe_sorting_tpu_torch.models.mehp24.utils import rotation_indices_mehp24
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
+    from fhe_sorting_tpu_torch.utils import hbm_budget
+    from fhe_sorting_tpu_torch.utils.params_registry import MEHP24_DEPTH, direct_sort_sign_cfg
+
+    depth = MEHP24_DEPTH[n] + 2
+    t0 = time.time()
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2, base_limbs=4,
+                             ntt_impl="butterfly"))
+    pow2 = {1 << i for i in range(RING.bit_length() - 2)}
+    steps = sorted(rotation_indices_mehp24(n) | pow2 | {-s for s in pow2})
+    report = hbm_budget.check_phase(ctx, len(steps), 6, label=f"MEHP24 N={n}")
+    print(f"# mehp24: depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}; reckoned before "
+          f"allocating: {report}")
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(steps)
+    ev = Evaluator(ctx, keys)
+    _sync()
+    print(f"# mehp24: context and keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    srt = Mehp24Sort(ev, n, sub_length=n)
+    _, dg, df = direct_sort_sign_cfg(n)
+    cfg = SignConfig(CompositeSignConfig(3, dg, df))
+    x = np.random.default_rng(5).permutation(n) / n + 0.5 / n
+    padded = np.zeros(n * n)
+    padded[:n] = x
+    out, secs, counts = _counted(
+        counters, lambda: srt.sort(keys.encrypt(padded, slots=n * n), SignFunc.CompositeSign, cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = keys.decrypt(out, n)
+    err = float(np.abs(got - np.sort(x)).max())
+    print(f"# mehp24 N={n} ({n * n} slots), ring 2^17: {secs:.2f}s, output level {out.level}; "
+          f"max sort error {err:.3e}; rotations {srt.rot.stats.rotations}; peak device memory "
+          f"{peak:.2f} GiB measured, {report['used_gb']} GB reckoned ({smi})")
+    if not np.all(np.isfinite(got)) or got.shape != (n,):
+        raise AssertionError("mehp24: output is not N finite values")
+    if not err < 0.01:
+        raise AssertionError(f"mehp24: sort error {err} >= 0.01")
+    return _require_k2_only("mehp24", counts)
 
 
 def main() -> int:
@@ -329,6 +700,20 @@ def main() -> int:
         raise AssertionError("the per-op butterfly path must launch K2 and not K1")
     print(f"# sorts side by side: staged on K1 {staged_s:.3f}s, per-op on K2 {per_op_s:.3f}s "
           f"({smi})")
+    del srt, ev
+
+    # -- phases 7-10: the serving path and what stands behind it ---------------
+    counters = (fs_ntt, bf_ntt)
+    by_phase = {"per-op sort": k2_launches}
+    by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
+    del keys, ctx2, bf, k2
+    _release()
+    for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
+                        ("mehp24", _phase10_mehp24)):
+        by_phase[name] = phase(counters, smi)
+        _release()
+    k2_launches = sum(by_phase.values())
+    print(f"# K2 launches by phase: {by_phase}; K1 launches: staged sort {k1_launches}")
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",

@@ -37,7 +37,7 @@ getcontext().prec = 120
 @dataclass(frozen=True)
 class CkksParams:
     """Declarative parameter set (the reference's `CkksParams` fields and
-    defaults, less the bootstrapping-only ones)."""
+    defaults)."""
 
     ring_n: int                  # ring dimension (polynomial degree)
     mult_depth: int              # usable multiplicative depth
@@ -47,7 +47,13 @@ class CkksParams:
     dnum: int = 3                # hybrid key-switch digit count
     base_limbs: int = 2          # limbs reserved below the last rescale
     sigma: float = 3.2           # error std-dev
+    ksk_shoup: bool = False      # carried so that a context file round-trips:
+    #   the int64 mulmod keeps no Shoup table for key limbs, nothing reads it
+    secret_hamming: int | None = None  # sparse ternary secret (bootstrapping)
     ntt_impl: str = "auto"       # "auto" | "butterfly" | "mxu" (four-step)
+    first_mod_bits: int | None = None  # size of the bottom `comp` primes: a
+    #   q0 well above Delta lets full-range messages ModRaise without a
+    #   pre-scale and shrinks the EvalMod argument m*Delta/q0.  At most 30.
 
     def __post_init__(self):
         assert self.scale_bits % self.comp == 0, (self.scale_bits, self.comp)
@@ -120,6 +126,20 @@ def _choose_prime_chain(params: CkksParams):
         scales.append(s * s / prod)
 
     base = [take_nearest(unit) for _ in range(params.base_limbs)]
+    if params.first_mod_bits is not None:
+        # the bottom `comp` limbs become NTT primes just below
+        # 2^first_mod_bits: the bootstrap's ModRaise base q0 is their product
+        assert params.first_mod_bits <= 30, "first_mod_bits > 30: primes must stay < 2^31"
+        k = (1 << params.first_mod_bits) // m
+        found = []
+        while k > 0 and len(found) < params.comp:
+            cand = k * m + 1
+            if cand < 2**31 and cand not in used and primes_mod.is_prime(cand):
+                found.append(cand)
+                used.add(cand)
+            k -= 1
+        assert len(found) == params.comp, "not enough NTT primes near 2^first_mod_bits"
+        base[: params.comp] = found
     flat = [q for lvl in drop_order for q in lvl]
     return base + list(reversed(flat)), scales
 

@@ -18,6 +18,7 @@ sliced or copied per op.
 from __future__ import annotations
 
 import hashlib
+import time
 from collections import Counter, OrderedDict
 
 import numpy as np
@@ -31,16 +32,25 @@ from .keys import KeySwitchKey, Keys
 from .modmath import add_mod, mulmod, neg_mod, sub_mod
 from .ntt_mxu import mod_matmul
 
-# a full-chain ring-2^17 plaintext is 68 limbs x 1 MB: ~28 of them
+# default bound of the encoded-plaintext memo: a full-chain ring-2^17
+# plaintext is 68 limbs x 1 MiB of int64, so ~28 of them
 _PT_CACHE_BYTES = 2 << 30
+# bound of one limb chunk of `combo`'s stacked operand
+_COMBO_CHUNK_BYTES = 2 << 30
 
 
 class Evaluator:
     """Op collection bound to a Context + Keys."""
 
-    def __init__(self, ctx: Context, keys: Keys):
+    def __init__(self, ctx: Context, keys: Keys, pt_cache_bytes: int = _PT_CACHE_BYTES):
+        """`pt_cache_bytes` bounds the device bytes of the encoded-plaintext
+        memo (a caller that reuses more plaintexts than the default holds,
+        such as repeated bootstraps, sizes it from `pt_stats`)."""
         self.ctx = ctx
         self.keys = keys
+        self.pt_cache_bytes = pt_cache_bytes
+        # memo hits and misses, and host seconds spent encoding the misses
+        self.pt_stats = {"hits": 0, "misses": 0, "encode_s": 0.0}
         # logical-op counter for roofline accounting: (op, level) -> count
         self.op_stats: Counter = Counter()
         # encoded-plaintext memo (LRU), bounded by device bytes
@@ -64,7 +74,8 @@ class Evaluator:
 
     def make_plaintext(self, values, level: int, sdeg: int = 1,
                        slots: int | None = None) -> Plaintext:
-        """Encode on the host, NTT on the device; memoized by content."""
+        """Encode on the host (the embedding FFT), reduce to residues and NTT
+        on the device; memoized by content."""
         ctx = self.ctx
         values = np.asarray(values)
         values = values.astype(np.complex128 if np.iscomplexobj(values) else np.float64)
@@ -73,14 +84,23 @@ class Evaluator:
         hit = self._pt_cache.get(key)
         if hit is not None:
             self._pt_cache.move_to_end(key)
+            self.pt_stats["hits"] += 1
             return hit
+        t0 = time.perf_counter()
         coeffs = encode_coeffs(values, ctx.params.ring_n, ctx.scale(level, sdeg), slots=s)
-        res = coeffs_to_residues(coeffs, ctx.q_primes[: ctx.limbs_at(level)])
-        pt = Plaintext(self._ntt(ctx.tensor(res), ctx.active_limbs(level)), level, sdeg, s)
+        if coeffs.dtype == np.int64:
+            # centred int64 coefficients: one [n] upload and one remainder per
+            # limb on the device, the same canonical residues as the host loop
+            res = torch.remainder(ctx.tensor(coeffs)[None, :], ctx.p_active(level))
+        else:
+            res = ctx.tensor(coeffs_to_residues(coeffs, ctx.q_primes[: ctx.limbs_at(level)]))
+        self.pt_stats["misses"] += 1
+        self.pt_stats["encode_s"] += time.perf_counter() - t0
+        pt = Plaintext(self._ntt(res, ctx.active_limbs(level)), level, sdeg, s)
         nbytes = pt.data.numel() * pt.data.element_size()
         self._pt_cache[key] = pt
         self._pt_cache_used += nbytes
-        while self._pt_cache_used > _PT_CACHE_BYTES and len(self._pt_cache) > 1:
+        while self._pt_cache_used > self.pt_cache_bytes and len(self._pt_cache) > 1:
             _, old = self._pt_cache.popitem(last=False)
             self._pt_cache_used -= old.data.numel() * old.data.element_size()
         return pt
@@ -402,10 +422,19 @@ class Evaluator:
                 const_res[r, :, 0] = [mi % int(p) for p in ps]
         self.op_stats[("combo", lvl, B, R)] += 1
         p = self.ctx.p_active(lvl)
-        stacked = torch.stack([c.data for c in aligned])            # [B, 2, L, n]
-        n = stacked.shape[-1]
-        x = stacked.permute(2, 0, 1, 3).reshape(Ll, B, 2 * n)
-        out = mod_matmul(self.ctx.tensor(coeff_res), x, p[:, :, None])   # [L, R, 2n]
+        n = aligned[0].data.shape[-1]
+        coeff = self.ctx.tensor(coeff_res)
+        # limb chunks bound the stacked operand (and mod_matmul's float64
+        # halves of it) to _COMBO_CHUNK_BYTES: at N=1024 the sinc's 64 babies
+        # over a whole chain would not fit the device beside them
+        step = max(1, _COMBO_CHUNK_BYTES // (B * 2 * n * 8))
+        outs = []
+        for lo in range(0, Ll, step):
+            hi = min(lo + step, Ll)
+            x = torch.stack([c.data[:, lo:hi] for c in aligned])    # [B, 2, l, n]
+            x = x.permute(2, 0, 1, 3).reshape(hi - lo, B, 2 * n)
+            outs.append(mod_matmul(coeff[lo:hi], x, p[lo:hi, :, None]))   # [l, R, 2n]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs)
         out = out.reshape(Ll, R, 2, n).permute(1, 2, 0, 3)         # [R, 2, L, n]
         d0 = add_mod(out[:, 0], self.ctx.tensor(const_res), p)
         out = torch.stack([d0, out[:, 1]], dim=1)

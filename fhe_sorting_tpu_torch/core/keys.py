@@ -13,7 +13,10 @@ over every prime of Q*P, with s' = s^2 (relinearisation) or sigma_g(s).
 
 `Keys.from_numpy` builds keys from arrays (for example a JAX package key
 set, converted with `np.asarray`) so both packages can compute on identical
-keys and be compared bit for bit.
+keys and be compared bit for bit.  A `Keys` with `s_coeffs=s_eval=None` is
+the server's secret-free key set (`core/serialize.load_eval_keys` builds
+one): it encrypts and evaluates, and raises `SecretKeyMissing` on anything
+that needs the secret.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ def _host_intt_all(ctx: Context, res: np.ndarray) -> np.ndarray:
     return out
 
 
+class SecretKeyMissing(RuntimeError):
+    """An operation that needs the secret key on a secret-free key set."""
+
+
 @dataclass
 class KeySwitchKey:
     kb: torch.Tensor  # [dnum, Lq+K, n] int64 eval domain
@@ -57,8 +64,8 @@ class Keys:
     host; evaluation keys live on `ctx.device`."""
 
     ctx: Context
-    s_coeffs: np.ndarray            # [n] int8 ternary
-    s_eval: np.ndarray              # [Lq+K, n] u64 eval residues (host)
+    s_coeffs: np.ndarray | None     # [n] int8 ternary (None: server side)
+    s_eval: np.ndarray | None       # [Lq+K, n] u64 eval residues (host)
     pk: tuple                       # (b, a) [Lq, n] u64 eval (host)
     relin: KeySwitchKey | None = None
     rot: dict = field(default_factory=dict)    # galois element -> KeySwitchKey
@@ -70,7 +77,14 @@ class Keys:
         rng = np.random.default_rng(seed)
         n = ctx.params.ring_n
         all_p = ctx.all_primes
-        s = rng.integers(-1, 2, size=n).astype(np.int64)  # uniform ternary
+        h = ctx.params.secret_hamming
+        if h is None:
+            s = rng.integers(-1, 2, size=n).astype(np.int64)  # uniform ternary
+        else:
+            # sparse ternary secret (bounds the q0*I term in bootstrapping)
+            s = np.zeros(n, dtype=np.int64)
+            pos = rng.choice(n, size=h, replace=False)
+            s[pos] = rng.choice([-1, 1], size=h)
         s_eval = _host_ntt_all(ctx, coeffs_to_residues(s, all_p))
 
         e = np.rint(rng.normal(0, ctx.params.sigma, size=n)).astype(np.int64)
@@ -89,11 +103,14 @@ class Keys:
     def from_numpy(cls, ctx: Context, s_coeffs, s_eval, pk_b, pk_a,
                    relin_kb, relin_ka, rot=None, conj=None) -> "Keys":
         """Keys from numpy arrays; `rot` maps galois element -> (kb, ka),
-        `conj` is the conjugation key's (kb, ka)."""
+        `conj` is the conjugation key's (kb, ka).  `s_coeffs` and `s_eval`
+        may both be None: the key set then holds no secret."""
         dev = ctx.tensor
+        assert (s_coeffs is None) == (s_eval is None), "secret: both parts or neither"
         keys = cls(
-            ctx=ctx, s_coeffs=np.asarray(s_coeffs, dtype=np.int8),
-            s_eval=np.asarray(s_eval, dtype=np.uint64),
+            ctx=ctx,
+            s_coeffs=None if s_coeffs is None else np.asarray(s_coeffs, dtype=np.int8),
+            s_eval=None if s_eval is None else np.asarray(s_eval, dtype=np.uint64),
             pk=(np.asarray(pk_b, dtype=np.uint64), np.asarray(pk_a, dtype=np.uint64)),
             relin=KeySwitchKey(dev(relin_kb), dev(relin_ka)),
             rot={int(g): KeySwitchKey(dev(kb), dev(ka))
@@ -119,8 +136,13 @@ class Keys:
             out.append([g_big % p for p in ctx.all_primes])
         return np.array(out, dtype=np.int64)
 
+    def _need_secret(self, what: str):
+        if self.s_eval is None:
+            raise SecretKeyMissing(f"{what} needs the secret key; this key set holds none")
+
     @property
     def _s_dev(self) -> torch.Tensor:
+        self._need_secret("key generation")
         if getattr(self, "_s_dev_t", None) is None:
             self._s_dev_t = self.ctx.tensor(self.s_eval)
         return self._s_dev_t
@@ -206,6 +228,7 @@ class Keys:
 
     def decrypt_complex(self, ct: Ciphertext,
                         num_values: int | None = None) -> np.ndarray:
+        self._need_secret("decrypt")
         ctx = self.ctx
         Ll = ct.num_limbs
         qs = ctx.q_primes[:Ll]

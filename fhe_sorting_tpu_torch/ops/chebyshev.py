@@ -145,7 +145,12 @@ class ChebyshevPS:
                 out = ev.add(out, fold(rn))
             return out
 
-        return fold(root)
+        out = fold(root)
+        # plan and fold are recursive closures, each a reference cycle through
+        # its own cell: unbind them, or the babies, giants and leaves they hold
+        # stay on the device until the cyclic collector happens to run
+        plan = fold = None
+        return out
 
 
 def chebyshev_fit(fn, degree: int) -> np.ndarray:
@@ -163,3 +168,15 @@ def chebyshev_fit(fn, degree: int) -> np.ndarray:
 def eval_chebyshev_function(ev, fn, x: Ciphertext, degree: int) -> Ciphertext:
     """Fit `fn` on [-1, 1] at `degree` and evaluate the series on x."""
     return ChebyshevPS(ev).evaluate(x, chebyshev_fit(fn, degree))
+
+
+def eval_chebyshev_function_ab(ev, fn, x: Ciphertext, degree: int,
+                               a: float, b: float) -> Ciphertext:
+    """`eval_chebyshev_function` with an explicit [a, b] domain: fits fn on
+    [a, b], maps x affinely into [-1, 1] (one ct-scalar mult level), then PS."""
+    if (a, b) == (-1.0, 1.0):
+        return eval_chebyshev_function(ev, fn, x, degree)
+    mid, half = (a + b) / 2.0, (b - a) / 2.0
+    y = ev.mult(ev.sub(x, mid), 1.0 / half)
+    return ChebyshevPS(ev).evaluate(
+        y, chebyshev_fit(lambda t: fn(mid + half * t), degree))

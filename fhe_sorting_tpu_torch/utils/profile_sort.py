@@ -2,9 +2,10 @@
 
     python -m fhe_sorting_tpu_torch.utils.profile_sort --path per_op
     python -m fhe_sorting_tpu_torch.utils.profile_sort --path staged
+    python -m fhe_sorting_tpu_torch.utils.profile_sort --path staged --ntt butterfly
 
 Builds the context (butterfly NTT for `per_op`, the default NTT for
-`staged`), keys and sorter at N=128, ring 2^17, runs a warm-up sort, then one sort
+`staged`, or the one `--ntt` names), keys and sorter at N=128, ring 2^17, runs a warm-up sort, then one sort
 under the profiler, and prints: the sort's wall-clock with and without the
 profiler, the device time of all kernels, the share of the wall-clock the
 device was busy (the union of kernel intervals), device time by kernel
@@ -40,41 +41,77 @@ def _classify(name: str) -> str:
     return "other"
 
 
+RING = 1 << 17
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def sort_context(N: int, path: str, ntt: str):
+    """(context, sign config, depth) of a DirectSort of N values at ring
+    2^17: the composite-scaling chain (scale 2^56, comp 2), the registry's
+    sign config, the depth from the depth meter."""
+    from ..core.context import CkksParams, Context
+    from ..ops.sign import CompositeSignConfig, SignConfig
+    from .depth_meter import measure_direct_sort_depth
+    from .params_registry import direct_sort_sign_cfg
+
+    cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(N)))
+    depth = measure_direct_sort_depth(N, RING, cfg, staged=path == "staged")["mult_depth"]
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
+                             base_limbs=4, dnum=3, ntt_impl=ntt))
+    return ctx, cfg, depth
+
+
+def rotation_steps(N: int, path: str, lazy_key_budget: int | None = None) -> list[int]:
+    """The rotation keys a path keeps resident: the minimal scan set
+    (`staged`), the full per-op set, or none where the per-op sort's composer
+    generates keys just in time (`lazy_key_budget`)."""
+    from ..models.direct_sort import rotation_indices_direct_sort
+    from ..parallel.direct_staged import scan_rotation_indices
+
+    if path == "staged":
+        return sorted(scan_rotation_indices(N, RING))
+    return [] if lazy_key_budget else sorted(rotation_indices_direct_sort(N, RING))
+
+
+def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None):
+    """(keys, sort, composer) on `ctx`: keys from seed 0 with the path's
+    rotation keys, `sort(ct)` the whole sort, the per-op sort's
+    RotationComposer (None on the staged path)."""
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
+    from ..models.direct_sort import DirectSort
+    from ..ops.sign import SignFunc
+    from ..parallel.direct_staged import StagedDirectSort
+
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(rotation_steps(N, path, lazy_key_budget))
+    ev = Evaluator(ctx, keys)
+    if path == "staged":
+        return keys, StagedDirectSort(ev, N, cfg), None
+    srt = DirectSort(ev, N, lazy_key_budget=lazy_key_budget)
+    return keys, (lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg)), srt.rot
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("per_op", "staged"), default="per_op")
+    ap.add_argument("--ntt", choices=("auto", "butterfly", "mxu"), default=None,
+                    help="ntt_impl of the context (default: butterfly for per_op, auto for staged)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sort: no CUDA device")
 
-    from ..core.context import CkksParams, Context
-    from ..core.evaluator import Evaluator
-    from ..core.keys import Keys
-    from ..models.direct_sort import DirectSort, rotation_indices_direct_sort
-    from ..ops.sign import CompositeSignConfig, SignConfig, SignFunc
-    from ..parallel.direct_staged import StagedDirectSort, scan_rotation_indices
-    from .depth_meter import measure_direct_sort_depth
-    from .params_registry import direct_sort_sign_cfg
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    N, ring, top = 128, 1 << 17, 12
-    cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(N)))
-    depth = measure_direct_sort_depth(N, ring, cfg)["mult_depth"]
-    per_op = args.path == "per_op"
-    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, scale_bits=56, comp=2,
-                             base_limbs=4, dnum=3,
-                             ntt_impl="butterfly" if per_op else "auto"))
-    keys = Keys.generate(ctx, seed=0)
-    ev = Evaluator(ctx, keys)
-    if per_op:
-        keys.gen_rotation_keys(sorted(rotation_indices_direct_sort(N, ring)))
-        srt = DirectSort(ev, N)
-        sort = lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg)
-    else:
-        keys.gen_rotation_keys(sorted(scan_rotation_indices(N, ring)))
-        sort = StagedDirectSort(ev, N, cfg)
+    smi = card()
+    N, ring, top = 128, RING, 12
+    ctx, cfg, depth = sort_context(
+        N, args.path, args.ntt or ("butterfly" if args.path == "per_op" else "auto"))
+    keys, sort, _ = sorter(ctx, cfg, N, args.path)
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     ct = keys.encrypt(vals)
 

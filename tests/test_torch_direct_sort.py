@@ -58,9 +58,11 @@ def test_rotation_sets_and_2n_masks_match_jax(N, ring):
     assert tds._np_2n(16) == jds._np_2n(16) and tds._np_2n(2) == jds._np_2n(2)
 
 
-def test_direct_sort_n8_matches_jax():
+def _sort_both(vals):
+    """The same input ciphertext and keys through both packages' per-op
+    DirectSort at N=8, ring 512; the planes of rank and output must be
+    bit-equal.  Returns (port's keys, rank, output, the two sorters)."""
     N, ring = 8, 512
-    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     jcfg = jsign.SignConfig(jsign.CompositeSignConfig(3, 2, 2))
     tcfg = tsign.SignConfig(tsign.CompositeSignConfig(3, 2, 2))
     depth = j_depth(N, ring, jcfg)["mult_depth"]
@@ -90,9 +92,17 @@ def test_direct_sort_n8_matches_jax():
     (rank,) = ranks
     assert (rank.level, rank.sdeg, rank.slots) == (jrank.level, jrank.sdeg, jrank.slots)
     np.testing.assert_array_equal(rank.data.numpy(), np.asarray(jrank.data).astype(np.int64))
-
     assert (out.level, out.sdeg, out.slots) == (jout.level, jout.sdeg, jout.slots)
     np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data).astype(np.int64))
+    # the reference decrypts its own output to the same values
+    np.testing.assert_allclose(jkeys.decrypt(jout, N), keys.decrypt(out, N), atol=1e-9)
+    return keys, rank, out, srt, jsrt
+
+
+def test_direct_sort_n8_matches_jax():
+    N = 8
+    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
+    keys, rank, out, srt, jsrt = _sort_both(vals)
     assert float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max()) < 0.01
     # the rank is the plain rank to ~1e-2 (the sinc indicator's margin)
     plain_rank = np.array([np.sum(v > vals) for v in vals], dtype=np.float64)
@@ -101,3 +111,18 @@ def test_direct_sort_n8_matches_jax():
     assert ts.fast_rotations == js.fast_rotations and ts.composed == js.composed == 0
     assert ts.rotations == js.rotations and ts.calls == js.calls
     assert srt.ev.op_stats[("rot_pre", out.level - 1)] >= 1
+
+
+def test_direct_sort_tied_input_matches_jax():
+    """The rank sort breaks no ties, in either package: tied values share one
+    rank, rank = #(smaller) + (k - 1) / 2 for a group of k, so they pile into
+    one slot (odd k) or spread over its neighbours (even k), and the output is
+    not the sorted vector.  Both packages give the same planes; the error is
+    pinned so that a tie rule, when one lands, has to change this test."""
+    N = 8
+    vals = np.array([0.3125, 0.8125, 0.3125, 0.0625, 0.5625, 0.3125, 0.8125, 0.6875])
+    keys, rank, out, _, _ = _sort_both(vals)
+    tied_rank = np.array([np.sum(v > vals) + (np.sum(v == vals) - 1) / 2 for v in vals])
+    np.testing.assert_allclose(keys.decrypt(rank, N), tied_rank, atol=1e-2)
+    err = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
+    assert abs(err - 0.6867) < 1e-3
