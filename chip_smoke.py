@@ -38,9 +38,19 @@ Phases (each failure raises, and the script exits non-zero):
   9. BitonicSort with bootstrapping at N=8, depth 42, sparse secret, max error
      < 0.01 and at least one bootstrap fired;
  10. MEHP24 at N=64 (one 64 x 64 matrix in 4096 slots), depth 43, max error
-     < 0.01.
-Phases 7-10 run butterfly contexts at ring 2^17: each must launch K2 and
-never K1, with the counts set to 0 just before and read just after.
+     < 0.01;
+     the sign characterizer: CompositeSign(3,3,2) swept at ring 2^12;
+ 11. the k-way sorting network, k=2 and N=16, at ring 2^17 under a uniform
+     ternary secret within the 128-bit logQP budget, with real bootstraps mid-
+     sort (`fhe_sorting_tpu_torch.utils.kway_run`): max error < 0.01 and at
+     least one bootstrap fired; then one five-sorter stage (k=5, N=5) on the
+     same context and keys, max error < 0.01;
+ 12. the staged N>256 regimes at the reference's size, N=512 over two
+     256-wide tiles (`utils.large_sort.staged_hybrid`, `staged_mehp24`):
+     the staged hybrid DirectSort (depth 48) and the staged MEHP24 triangle
+     (depth 46), each max error < 0.01.
+Phases 7-12 run butterfly contexts: each must launch K2 and never K1, with
+the counts set to 0 just before and read just after.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Bounds in the JSON record: `bound_ms` is the least time the card could take
@@ -338,14 +348,18 @@ def _boot_env(depth, hamming, shape, budget, smi, label, pt_cache_bytes=None, n_
     return ctx, keys, ev, rot, bs, report
 
 
-def _bootstrap_once(counters, smi, label, depth, hamming, shape):
+def _phase8_bootstrap(counters, smi):
     """Two refreshes of 2^16 values in [0, 1].  The first, on an empty
     plaintext memo, is the bootstrap's time: it encodes every diagonal on the
     host, as every refresh does under the evaluator's default memo, which holds
     a fraction of one refresh's plaintexts.  The second shows what a memo
-    that holds them all (24 GiB here) saves.  Returns (max error, K2 launches)
-    of the second after checking everything but the error."""
-    ctx, keys, ev, rot, bs, report = _boot_env(depth, hamming, shape, (3, 3), smi, label,
+    that holds them all (24 GiB here) saves.  The uniform-ternary-secret
+    shape; the second refresh must meet max error < 1e-2.  Returns its K2
+    launches."""
+    # the refresh ends at level 30 (scale degree 2): depth 33 leaves two levels
+    depth = 33
+    ctx, keys, ev, rot, bs, report = _boot_env(depth, None, BOOT_UNIFORM, (3, 3), smi,
+                                               "bootstrap (uniform ternary secret)",
                                                pt_cache_bytes=24 << 30)
     nh = RING // 2
     z = np.random.default_rng(3).uniform(0, 1.0, nh)
@@ -404,26 +418,9 @@ def _bootstrap_once(counters, smi, label, depth, hamming, shape):
         raise AssertionError(f"bootstrap: fewer than two levels left (level {out.level})")
     if not out.level < ct_low.level:
         raise AssertionError("bootstrap: the level was not refreshed")
-    return float(err.max()), _require_k2_only("bootstrap", counts)
-
-
-def _phase8_bootstrap(counters, smi):
-    """One bootstrap at ring 2^17.  The uniform-ternary-secret shape is the
-    asserted one; if it cannot meet 1e-2 at this ring, its error is reported
-    and the sparse-secret shape is run and asserted instead."""
-    # the uniform shape's refresh ends at level 30 (scale degree 2), the sparse
-    # shape's at 24: each depth leaves two levels
-    err, k2 = _bootstrap_once(counters, smi, "bootstrap (uniform ternary secret)", 33, None,
-                              BOOT_UNIFORM)
-    if not err < 1e-2:
-        print(f"# bootstrap: the uniform-secret shape reaches max error {err:.3e}, not 1e-2, at "
-              f"ring 2^17: the sparse-secret shape is the asserted one")
-        _release()
-        err, k2 = _bootstrap_once(counters, smi, "bootstrap (sparse secret, hamming 64)", 27, 64,
-                                  BOOT_SPARSE)
-    if not err < 1e-2:
-        raise AssertionError(f"bootstrap: max error {err} >= 1e-2")
-    return k2
+    if not err.max() < 1e-2:
+        raise AssertionError(f"bootstrap: max error {err.max()} >= 1e-2")
+    return _require_k2_only("bootstrap", counts)
 
 
 def _phase9_bitonic(counters, smi, n=8):
@@ -515,6 +512,119 @@ def _phase10_mehp24(counters, smi, n=64):
     if not err < 0.01:
         raise AssertionError(f"mehp24: sort error {err} >= 0.01")
     return _require_k2_only("mehp24", counts)
+
+
+def _characterizer_line(counters, smi):
+    """The sign characterizer's sweep of CompositeSign(3,3,2) at ring 2^12 on
+    a butterfly context (keys from seed 0, as the characterizer makes)."""
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.utils.sign_characterizer import characterize
+
+    ctx = Context(CkksParams(ring_n=1 << 12, mult_depth=(3 + 2) * 3 + 4, ntt_impl="butterfly"))
+    keys = Keys.generate(ctx, seed=0)
+    m, secs, counts = _counted(counters, lambda: characterize(3, 3, 2, keys=keys))
+    print(f"# sign characterizer, ring 2^12: {json.dumps(m)}; sweep {secs:.2f}s ({smi})")
+    if m["working_precision"] is None:
+        raise AssertionError("characterizer: no input magnitude met the threshold")
+    return _require_k2_only("characterizer", counts)
+
+
+def _phase11_kway(counters, smi, n=16):
+    """The k-way network, k=2, at ring 2^17 under a uniform ternary secret
+    (`kway_run.build`), then one five-sorter stage on its context and keys."""
+    from fhe_sorting_tpu_torch.models.kway import KWaySorter
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
+    from fhe_sorting_tpu_torch.utils import kway_run
+
+    t0 = time.time()
+    run = kway_run.build(n)
+    _sync()
+    setup_s = time.time() - t0
+    budget = kway_run.LOGQP_128[RING]
+    print(f"# k-way N={n}: ring 2^17, depth {kway_run.DEPTH}, Lq={run.ctx.num_q}, "
+          f"K={run.ctx.num_sp}, uniform ternary secret, logQP {run.logqp:.1f} against the "
+          f"128-bit budget {budget}; reckoned before allocating: {run.report}; plaintext memo "
+          f"{run.memo}; setup {setup_s:.1f}s ({len(run.keys.rot)} keys resident + lazy pool "
+          f"{kway_run.LAZY_KEYS}) ({smi})")
+    if not run.logqp <= budget:
+        raise AssertionError(f"k-way: logQP {run.logqp} over the budget {budget}")
+    ct = run.keys.encrypt(run.vals, slots=n)
+    out, secs, counts = _counted(
+        counters, lambda: run.sorter.sort(ct, SignFunc.CompositeSign, run.cfg))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = run.keys.decrypt(out, n)
+    err = float(np.abs(got - np.sort(run.vals)).max())
+    st, pt = run.rot.stats, run.ev.pt_stats
+    boot_s = sum(f["s"] for f in run.fired)
+    print(f"# k-way N={n}: sort {secs:.2f}s, of it {len(run.fired)} bootstraps {boot_s:.2f}s; "
+          f"per refresh (level, s, lazy keygens, memo misses): {kway_run.describe(run.fired)}; "
+          f"output level {out.level}; max sort error {err:.3e} ({smi})")
+    print(f"# k-way: rotations {st.rotations}, composed {st.composed}, lazy keygens "
+          f"{st.lazy_keygens}; plaintext memo {pt['misses']} misses, "
+          f"{pt['hits']} hits, {pt['encode_s']:.2f}s of host encoding, "
+          f"{run.ev._pt_cache_used / 2**30:.2f} GiB held; peak device memory {peak:.2f} GiB "
+          f"measured against the {run.report['budget_gb']} GiB budget, {run.report['used_gb']} "
+          f"GiB reckoned for keys, ciphertexts and a refresh ({smi})")
+    kway_run.check_peak(run, peak)
+    if not np.all(np.isfinite(got)) or got.shape != (n,):
+        raise AssertionError("k-way: output is not N finite values")
+    if len(run.fired) < 1:
+        raise AssertionError("k-way: no bootstrap fired")
+    if not err < 0.01:
+        raise AssertionError(f"k-way: sort error {err} >= 0.01")
+    k2 = _require_k2_only("k-way", counts)
+
+    # one five-sorter stage: k=5, N=5 in 8 slots, on the chain's depth alone
+    x5 = np.array([0.9, 0.1, 0.5, 0.7, 0.3])
+    pad = np.zeros(8)
+    pad[:5] = x5
+    ct5 = run.keys.encrypt(pad, slots=8)
+    srt5 = KWaySorter(run.ev, 5, 1)
+    out5, secs5, counts5 = _counted(counters, lambda: srt5.sort(
+        ct5, SignFunc.CompositeSign, SignConfig(CompositeSignConfig(3, 3, 2))))
+    got5 = run.keys.decrypt(out5, 5)
+    err5 = float(np.abs(got5 - np.sort(x5)).max())
+    print(f"# k-way five-sorter stage (k=5, N=5): {secs5:.2f}s, output level {out5.level}; max "
+          f"sort error {err5:.3e} ({smi})")
+    if not np.all(np.isfinite(got5)) or not err5 < 0.01:
+        raise AssertionError(f"k-way five-sorter: sort error {err5} >= 0.01")
+    return k2 + _require_k2_only("k-way five-sorter", counts5)
+
+
+def _phase12_staged_large(counters, smi, n=512):
+    """The staged hybrid DirectSort and the staged MEHP24 triangle over two
+    tiles, as `large_sort.staged_hybrid` and `staged_mehp24` configure them."""
+    from fhe_sorting_tpu_torch.utils import large_sort
+
+    k2 = 0
+    for label, build in (("staged hybrid", large_sort.staged_hybrid),
+                         ("staged MEHP24", large_sort.staged_mehp24)):
+        t0 = time.time()
+        ctx, keys, sort, info = build(n)
+        _sync()
+        setup_s = time.time() - t0
+        x = np.random.default_rng(6).permutation(n) / n + 0.5 / n
+        pad = np.zeros(info["slots"])
+        pad[:n] = x
+        ct = keys.encrypt(pad, slots=info["slots"])
+        out, secs, counts = _counted(counters, lambda: sort(ct))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = keys.decrypt(out, n)
+        err = float(np.abs(got - np.sort(x)).max())
+        phases = ", ".join(f"{k} {v:.2f}s" for k, v in info["phase_s"].items())
+        used = max(r["used_gb"] for r in info["reports"])
+        print(f"# {info['what']}, ring 2^17: depth {info['depth']}, Lq={ctx.num_q}, "
+              f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; setup {setup_s:.1f}s; sort "
+              f"{secs:.2f}s{f' ({phases})' if phases else ''}, output level {out.level}; max sort "
+              f"error {err:.3e}; peak device memory {peak:.2f} GiB measured, {used} GB "
+              f"reckoned ({smi})")
+        if not np.all(np.isfinite(got)) or not err < 0.01:
+            raise AssertionError(f"{label}: sort error {err} >= 0.01")
+        k2 += _require_k2_only(label, counts)
+        del ctx, keys, sort, info, ct, out
+        _release()
+    return k2
 
 
 def main() -> int:
@@ -702,14 +812,16 @@ def main() -> int:
           f"({smi})")
     del srt, ev
 
-    # -- phases 7-10: the serving path and what stands behind it ---------------
+    # -- phases 7-12: the serving path, what stands behind it, the k-way network
+    # and the staged N>256 regimes -----------------------------------------------
     counters = (fs_ntt, bf_ntt)
     by_phase = {"per-op sort": k2_launches}
     by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
     del keys, ctx2, bf, k2
     _release()
     for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
-                        ("mehp24", _phase10_mehp24)):
+                        ("mehp24", _phase10_mehp24), ("characterizer", _characterizer_line),
+                        ("k-way", _phase11_kway), ("staged N>256 regimes", _phase12_staged_large)):
         by_phase[name] = phase(counters, smi)
         _release()
     k2_launches = sum(by_phase.values())

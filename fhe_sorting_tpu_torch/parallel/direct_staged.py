@@ -12,7 +12,7 @@ reference's, each a plain eager call here (no tracing):
                        H  mask-mult + pre-rotations + blind-rotation Horner
            once:       I  batch Horner recombine + fold + SetSlots
 
-`_run` counts each stage's calls and the evaluator ops it issued, for a
+`run_stage` counts each stage's calls and the evaluator ops it issued, for a
 later roofline; `verbose` prints per-stage seconds (synchronizing the
 device first).  Key set: `scan_rotation_indices`.
 """
@@ -55,6 +55,23 @@ class StageStats:
         self.op_counts: Counter = Counter()
 
 
+def run_stage(ev, stages: dict, verbose: bool, name: str, fn, cts):
+    """`fn(cts)` as the stage `name`: counts its call and the evaluator ops it
+    issued in `stages[name]`; `verbose` prints its seconds (synchronizing the
+    device first)."""
+    st = stages.setdefault(name, StageStats())
+    before = ev.op_stats.copy()
+    t0 = time.time()
+    out = fn(cts)
+    st.calls += 1
+    st.op_counts += ev.op_stats - before
+    if verbose:
+        if ev.ctx.device.type == "cuda":
+            torch.cuda.synchronize(ev.ctx.device)
+        print(f"#   stage {name}: {time.time() - t0:.2f}s", file=sys.stderr)
+    return out
+
+
 class StagedDirectSort:
     """DirectSort over the minimal key set, one eager call per stage."""
 
@@ -80,17 +97,7 @@ class StagedDirectSort:
     # -- stage infrastructure ---------------------------------------------
 
     def _run(self, name: str, fn, cts):
-        st = self.stages.setdefault(name, StageStats())
-        before = self.ev.op_stats.copy()
-        t0 = time.time()
-        out = fn(cts)
-        st.calls += 1
-        st.op_counts += self.ev.op_stats - before
-        if self.verbose:
-            if self.ev.ctx.device.type == "cuda":
-                torch.cuda.synchronize(self.ev.ctx.device)
-            print(f"#   stage {name}: {time.time() - t0:.2f}s", file=sys.stderr)
-        return out
+        return run_stage(self.ev, self.stages, self.verbose, name, fn, cts)
 
     # -- phase 1: constructRank -------------------------------------------
 

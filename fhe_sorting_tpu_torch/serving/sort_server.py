@@ -10,7 +10,7 @@ file.
 Usage:
   python -m fhe_sorting_tpu_torch.serving.sort_server --cc cc.json \
       --keys keys.npz --input in.npz --output out.npz --n 128 \
-      [--algo direct|bitonic|mehp24] [--device cuda:0]
+      [--algo direct|bitonic|kway|mehp24] [--device cuda:0]
 
 `--device` defaults to the first CUDA card and raises where there is none;
 `--device cpu` runs the plain PyTorch NTTs.
@@ -28,17 +28,7 @@ from ..core.evaluator import Evaluator
 from ..core.serialize import load_ciphertext, load_context, load_eval_keys, save_ciphertext
 from ..ops.sign import CompositeSignConfig, SignConfig, SignFunc
 
-ALGOS = ("direct", "bitonic", "mehp24")
-
-
-def _algo(name: str) -> str:
-    if name == "kway":
-        raise argparse.ArgumentTypeError(
-            "the k-way sort is not ported to this package yet (ROADMAP.md, "
-            "milestone M9); use the JAX package's serving/sort_server.py for it")
-    if name not in ALGOS:
-        raise argparse.ArgumentTypeError(f"choose from {', '.join(ALGOS)}")
-    return name
+ALGOS = ("direct", "bitonic", "kway", "mehp24")
 
 
 def main(argv=None):
@@ -48,7 +38,7 @@ def main(argv=None):
     ap.add_argument("--input", required=True, help="input ciphertext npz")
     ap.add_argument("--output", required=True, help="output ciphertext npz")
     ap.add_argument("--n", type=int, required=True, help="array size")
-    ap.add_argument("--algo", default="direct", type=_algo, help="|".join(ALGOS))
+    ap.add_argument("--algo", default="direct", choices=ALGOS)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     # default: the params registry's per-N choice (a registry default cannot
@@ -79,6 +69,10 @@ def main(argv=None):
         from ..models.bitonic import BitonicSort
 
         sorter = BitonicSort(ev, args.n, normalize=1.0)
+    elif args.algo == "kway":
+        from ..models.kway.adapter import KWayAdapter
+
+        sorter = KWayAdapter(ev, args.n)
     else:
         from ..models.mehp24 import Mehp24Sort
 

@@ -109,6 +109,16 @@ class MeterEvaluator:
             out = self.add(out, c)
         return out
 
+    def align_group(self, cts):
+        """Common (level, sdeg) for a group, as the evaluator's."""
+        lvl = max(c.level for c in cts)
+        out = [self.adjust_level(c, lvl) if c.level < lvl else c for c in cts]
+        lvl = max(c.level for c in out)
+        out = [self.adjust_level(c, lvl) if c.level < lvl else c for c in out]
+        if len({c.sdeg for c in out}) > 1:
+            out = [Ciphertext(None, c.level, 2, c.slots) for c in out]
+        return out
+
     def mult(self, a: Ciphertext, b) -> Ciphertext:
         self.mults += 1
         if a.sdeg == 2:

@@ -1,34 +1,176 @@
-"""One DirectSort at a large N on the card, by either path, with its memory
-reckoned first.
+"""One sort at a large N on the card, with its memory reckoned first.
 
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path per_op
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path staged
+    python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --path hybrid
+    python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --algo mehp24_staged
 
-`per_op` keys nothing up front and lets the sort's RotationComposer generate
-each rotation key just in time on the device, at most 8 of them resident;
-`staged` keys the minimal scan set.  The configuration is `profile_sort`'s
-(ring 2^17, scale 2^56 with comp 2, the depth from the depth meter) on the
-butterfly NTT.  Prints the card, the reckoned and the measured peak
-memory, seconds of a warm-up sort and of a timed one, the lazy keygens and
-the max error against np.sort; exits non-zero on an error >= 0.01.  Needs a
-CUDA device.
+DirectSort (`--algo direct`, the default) by one of three paths: `per_op`
+keys nothing up front and lets the sort's RotationComposer generate each
+rotation key just in time on the device, at most 8 of them resident;
+`staged` keys the minimal scan set; both are `profile_sort`'s configuration
+(ring 2^17, scale 2^56 with comp 2, the depth from the depth meter).
+`hybrid` is the staged hybrid sort over 256-wide tiles (`staged_hybrid`),
+and `--algo mehp24_staged` the MEHP24 triangle over sub-length 256
+(`staged_mehp24`).  All run on the butterfly NTT.  Prints the card, the
+reckoned and the measured peak memory, seconds of a warm-up sort and of a
+timed one, and the max error against np.sort; exits non-zero on an error
+>= 0.01.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import numpy as np
 import torch
 
 LAZY_KEY_BUDGET = 8
+TILE = 256                       # the reference's tile: 256 values, 256x256 slots
+LOGQP_128 = 3524                 # ring 2^17, HEStd_128_classic
+
+
+def _context(depth: int, dnum: int):
+    from ..core.context import CkksParams, Context
+    from .profile_sort import RING
+
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
+                             base_limbs=4, dnum=dnum, ntt_impl="butterfly"))
+    logqp = sum(math.log2(p) for p in ctx.all_primes)
+    if logqp > LOGQP_128:
+        raise ValueError(f"logQP {logqp:.1f} exceeds the 128-bit budget {LOGQP_128}")
+    return ctx, logqp
+
+
+def _hold_rotation_keys(keys, steps):
+    """Keep exactly the rotation keys of `steps`: drop the others, generate
+    the missing ones."""
+    ctx = keys.ctx
+    want = {ctx.galois_element_rot(s % (ctx.params.ring_n // 2)): s for s in steps}
+    for g in [g for g in keys.rot if g not in want]:
+        del keys.rot[g]
+    keys.gen_rotation_keys(sorted(s for g, s in want.items() if g not in keys.rot))
+
+
+def _metered_depth(make_sort, slots: int) -> int:
+    """The least chain depth of `make_sort(ev)`'s sort of a `slots`-slot
+    ciphertext at ring 2^17, metered on a data-free evaluator: the deepest
+    level it reaches, plus one where the result has scale degree 2."""
+    from ..core.cipher import Ciphertext
+    from .depth_meter import MeterEvaluator
+    from .profile_sort import RING
+
+    meter = MeterEvaluator(RING)
+    out = make_sort(meter)(Ciphertext(None, 0, 1, slots))
+    return meter.max_level + (out.sdeg == 2)
+
+
+def hybrid_plan(N: int):
+    """(sign config, depth) of the staged hybrid DirectSort of N values: the
+    registry's sign config and the depth metered on `StagedHybridSort`."""
+    from ..ops.sign import CompositeSignConfig, SignConfig
+    from ..parallel.hybrid_staged import StagedHybridSort
+    from .params_registry import direct_sort_sign_cfg
+
+    cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(N)))
+    return cfg, _metered_depth(lambda ev: StagedHybridSort(ev, N, cfg, max_array=TILE), N)
+
+
+def mehp24_plan(total: int):
+    """((dg_c, df_c, dg_i, df_i), depth) of the staged MEHP24 sort of `total`
+    values: the reference's N=512 run's configuration (dg_i 4 below 512), and
+    the depth metered on `StagedMehp24Multi` plus one spare level, the
+    reference run's chain (46 at N=512)."""
+    from ..parallel.mehp24_staged import StagedMehp24Multi
+
+    sign = (3, 2, (5 if total >= 512 else 4), 2)
+    return sign, _metered_depth(lambda ev: StagedMehp24Multi(ev, total, TILE, *sign),
+                                TILE * TILE) + 1
+
+
+def staged_hybrid(N: int):
+    """(ctx, keys, sort, info) of the staged hybrid DirectSort of N values
+    over 256-wide tiles at ring 2^17 (`hybrid_plan`), dnum 5 (logQP 3396.8
+    at depth 48 and N=512).  `sort(ct)` holds constructRank's scan keys, ranks,
+    swaps them for the placement basis, and places, so the device holds one
+    key set at a time; `info["phase_s"]` has the last sort's seconds by
+    phase."""
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
+    from ..parallel.direct_staged import scan_rotation_indices
+    from ..parallel.hybrid_staged import StagedHybridSort, hybrid_staged_keys
+    from . import hbm_budget
+    from .profile_sort import RING
+
+    cfg, depth = hybrid_plan(N)
+    ctx, logqp = _context(depth, 5)
+    scan, place = scan_rotation_indices(N, RING), hybrid_staged_keys(N, RING, TILE)
+    nb = max(1, N // TILE)
+    reports = [hbm_budget.check_phase(ctx, len(scan), 4, label="constructRank"),
+               # 2*nb rotated inputs + nb accumulators + rank + input
+               hbm_budget.check_phase(ctx, len(place), 3 * nb + 2, label="place")]
+    keys = Keys.generate(ctx, seed=0)
+    srt = StagedHybridSort(Evaluator(ctx, keys), N, cfg, max_array=TILE)
+    info = dict(depth=depth, logqp=logqp, reports=reports, slots=N, phase_s={},
+                what=f"staged hybrid DirectSort N={N} over {TILE}-wide tiles "
+                     f"(indicator dg {srt.dgi}, {len(scan)} scan keys, then {len(place)} "
+                     f"placement keys)")
+
+    def stamp(t):
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+        t.append(time.time())
+
+    def sort(ct):
+        t = [time.time()]
+        _hold_rotation_keys(keys, scan)
+        stamp(t)
+        rank = srt.base.construct_rank(ct)
+        stamp(t)
+        _hold_rotation_keys(keys, place)
+        stamp(t)
+        out = srt.place(rank, ct)
+        stamp(t)
+        info["phase_s"] = dict(zip(("scan keys", "constructRank", "placement keys", "place"),
+                                   np.diff(t)))
+        return out
+
+    return ctx, keys, sort, info
+
+
+def staged_mehp24(total: int):
+    """(ctx, keys, sort, info) of the MEHP24 triangle sort of `total` values
+    over 256x256 tiles at ring 2^17 (`mehp24_plan`), dnum 4.  `sort(ct)`
+    takes the values in the first `total` of 256 * 256 slots."""
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
+    from ..parallel.mehp24_staged import StagedMehp24Multi, mehp24_staged_keys
+    from . import hbm_budget
+    from .profile_sort import RING
+
+    sign, depth = mehp24_plan(total)
+    ctx, logqp = _context(depth, 4)
+    steps = sorted(mehp24_staged_keys(TILE, RING))
+    k = total // TILE
+    # the parts, their two replications, the Cv/Ch accumulators and the ranks
+    report = hbm_budget.check_phase(ctx, len(steps), 6 * k, label="MEHP24 staged")
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(steps)
+    srt = StagedMehp24Multi(Evaluator(ctx, keys), total, TILE, *sign)
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
+                what=f"staged MEHP24 N={total} over {k} tiles of {TILE}x{TILE} "
+                     f"(dg_c {sign[0]}, df_c {sign[1]}, dg_i {sign[2]}, df_i {sign[3]}; "
+                     f"{len(steps)} keys)")
+    return ctx, keys, srt, info
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1024)
-    ap.add_argument("--path", choices=("per_op", "staged"), default="per_op")
+    ap.add_argument("--path", choices=("per_op", "staged", "hybrid"), default="per_op")
+    ap.add_argument("--algo", choices=("direct", "mehp24_staged"), default="direct")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("large_sort: no CUDA device")
@@ -40,17 +182,31 @@ def main() -> int:
     print(smi)
     N, ring = args.n, RING
     t0 = time.time()
-    ctx, cfg, depth = sort_context(N, args.path, "butterfly")
-    resident = len(rotation_steps(N, args.path, LAZY_KEY_BUDGET)) or LAZY_KEY_BUDGET
-    report = hbm_budget.check_phase(ctx, resident, 8, label=f"{args.path} DirectSort N={N}")
-    print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, Lq={ctx.num_q}, "
-          f"K={ctx.num_sp}; reckoned before allocating: {report}")
-    keys, sort, rot = sorter(ctx, cfg, N, args.path, LAZY_KEY_BUDGET)
+    rot, info = None, None
+    if args.algo == "mehp24_staged":
+        ctx, keys, sort, info = staged_mehp24(N)
+    elif args.path == "hybrid":
+        ctx, keys, sort, info = staged_hybrid(N)
+    else:
+        ctx, cfg, depth = sort_context(N, args.path, "butterfly")
+        resident = len(rotation_steps(N, args.path, LAZY_KEY_BUDGET)) or LAZY_KEY_BUDGET
+        report = hbm_budget.check_phase(ctx, resident, 8, label=f"{args.path} DirectSort N={N}")
+        print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, Lq={ctx.num_q}, "
+              f"K={ctx.num_sp}; reckoned before allocating: {report}")
+        keys, sort, rot = sorter(ctx, cfg, N, args.path, LAZY_KEY_BUDGET)
+    if info is not None:
+        report = max(info["reports"], key=lambda r: r["used_gb"])
+        print(f"# {info['what']}, ring {ring}, depth {info['depth']}, Lq={ctx.num_q}, "
+              f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; reckoned before allocating: "
+              f"{info['reports']}")
     torch.cuda.synchronize()
     print(f"# context and keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.1f}s")
 
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
-    ct = keys.encrypt(vals)
+    slots = info["slots"] if info is not None else N
+    pad = np.zeros(slots)
+    pad[:N] = vals
+    ct = keys.encrypt(pad, slots=slots)
     secs = []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
@@ -62,9 +218,12 @@ def main() -> int:
     lazy = (rot.stats.lazy_keygens - lazy0) if rot else 0
     peak = torch.cuda.max_memory_allocated() / 2**30
     err = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
-    print(f"# {args.path} DirectSort N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s; "
-          f"max error {err:.3e}; lazy keygens in the timed sort {lazy}; peak device memory "
-          f"{peak:.2f} GiB measured, {report['used_gb']} GB reckoned ({smi})")
+    label = f"{args.algo} {args.path}" if args.algo == "direct" else args.algo
+    phases = ", ".join(f"{k} {v:.2f}s" for k, v in (info or {}).get("phase_s", {}).items())
+    print(f"# {label} N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s"
+          f"{f' ({phases})' if phases else ''}; max error {err:.3e}; lazy keygens in the timed "
+          f"sort {lazy}; output level {out.level}; peak device memory {peak:.2f} GiB measured, "
+          f"{report['used_gb']} GB reckoned ({smi})")
     return 0 if err < 0.01 else 1
 
 

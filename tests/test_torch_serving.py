@@ -4,7 +4,7 @@ through its `main`, on the CPU (`--device cpu`, the plain NTTs), at ring 512.
 The same input files served by the JAX package's server and by the port's
 must give bit-equal `out.npz` `data` (tolerance 0); decrypted sorts are held
 to max error < 0.01 against `np.sort`, the reference's own bound.  A failure
-(an unported algorithm, a missing rotation key, no CUDA device) must end the
+(an unknown algorithm, a missing rotation key, no CUDA device) must end the
 server with an error and leave no output file."""
 
 import os
@@ -139,16 +139,40 @@ def test_server_mehp24(tmp_path):
     assert np.abs(got - np.sort(x)).max() < 0.01
 
 
-@pytest.mark.parametrize("algo", ["kway", "quick"])
-def test_unported_algo_exits_nonzero(direct_files, algo, capsys):
+def test_server_kway(tmp_path):
+    """k=2, N=4 served from the JAX package's files by both servers:
+    `out.npz` `data` bit-equal, and the client's decrypt within 0.01."""
+    from serving.sort_server import main as j_server_main
+
+    n = 4
+    jctx = JContext(JParams(ring_n=RING, mult_depth=28))
+    jkeys = JKeys.generate(jctx, seed=0)
+    jkeys.gen_rotation_keys([1, 2, 4, -1, -2, -4])
+    jser.save_context(str(tmp_path / "cc.json"), jctx)
+    jser.save_eval_keys(str(tmp_path / "keys.npz"), jkeys)
+    x = np.array([0.55, 0.05, 0.8, 0.3])
+    jser.save_ciphertext(str(tmp_path / "in.npz"), jkeys.encrypt(x, slots=n, seed=1))
+
+    argv = _argv(tmp_path, n, "kway", "--sign_n", "3", "--dg", "1", "--df", "1")
+    server_main(argv)
+    with np.load(tmp_path / "out.npz") as z:
+        t_data, t_meta = z["data"], z["meta"]
+    os.remove(tmp_path / "out.npz")
+    j_server_main([a for a in argv if a not in ("--device", "cpu")])
+    with np.load(tmp_path / "out.npz") as z:
+        np.testing.assert_array_equal(t_meta, z["meta"])
+        np.testing.assert_array_equal(t_data, z["data"])
+    got = jkeys.decrypt(jser.load_ciphertext(str(tmp_path / "out.npz")), n)
+    assert np.abs(got - np.sort(x)).max() < 0.01
+
+
+@pytest.mark.parametrize("algo", ["quick"])
+def test_unported_algo_exits_nonzero(direct_files, algo):
     d, _, _ = direct_files
     before = (d / "out.npz").exists()
     with pytest.raises(SystemExit) as exc:
         server_main(_argv(d, N, algo, *SIGN))
     assert exc.value.code not in (0, None)
-    err = capsys.readouterr().err
-    if algo == "kway":
-        assert "ROADMAP" in err and "not ported" in err
     assert (d / "out.npz").exists() == before
 
 
@@ -173,7 +197,7 @@ def test_default_device_raises_without_cuda(direct_files):
 
 def test_server_module_runs_as_a_process(direct_files):
     """`python -m fhe_sorting_tpu_torch.serving.sort_server`: exit code 0 and
-    an output file on success, non-zero and none on an unported algorithm."""
+    an output file on success, non-zero and none on an unknown algorithm."""
     import subprocess
     import sys
 
@@ -183,7 +207,7 @@ def test_server_module_runs_as_a_process(direct_files):
     out = d / "proc_out.npz"
     argv = [a if a != str(d / "out.npz") else str(out) for a in _argv(d, N, "direct", *SIGN)]
     cmd = [sys.executable, "-m", "fhe_sorting_tpu_torch.serving.sort_server"]
-    bad = subprocess.run(cmd + [a if a != "direct" else "kway" for a in argv],
+    bad = subprocess.run(cmd + [a if a != "direct" else "quick" for a in argv],
                          env=env, cwd=root, capture_output=True, text=True)
     assert bad.returncode != 0 and not out.exists()
     ok = subprocess.run(cmd + argv, env=env, cwd=root, capture_output=True, text=True)
