@@ -19,7 +19,9 @@ Phases (each failure raises, and the script exits non-zero):
   5. drive the staged path: Context(ring 2^17, depth from the depth meter)
      -> Keys -> Evaluator -> StagedDirectSort at N=128, a warm-up sort then a
      timed one, decrypt, and require max error < 0.01 against np.sort and a
-     K1 launch count > 0 for the timed sort;
+     K1 launch count > 0 for the timed sort; print its roofline, phase by
+     phase: the share of the speed of light on `roofline.H100` of one sort's
+     op tallies (`phase_stats`) and the unit that bounds it;
   6. drive the per-op path the same way on a butterfly context:
      DirectSort(ev, 128).sort over the full key set, and require K2
      launches > 0 and K1 launches == 0 for the timed sort.
@@ -48,19 +50,29 @@ Phases (each failure raises, and the script exits non-zero):
  12. the staged N>256 regimes at the reference's size, N=512 over two
      256-wide tiles (`utils.large_sort.staged_hybrid`, `staged_mehp24`):
      the staged hybrid DirectSort (depth 48) and the staged MEHP24 triangle
-     (depth 46), each max error < 0.01.
-Phases 7-12 run butterfly contexts: each must launch K2 and never K1, with
-the counts set to 0 just before and read just after.
+     (depth 46), each max error < 0.01;
+ 13. the multi-device sorts on a one-rank NCCL world (`file://` store in a
+     temporary directory): ShardedDirectSort at N=1024 (depth metered on the
+     sharded class, 20 rotation and 16 batch-offset keys) after a warm-up,
+     a limb-parallel mult + rescale + rotate on a (1 x 1) mesh bit-equal to
+     the plain evaluator, and ShardedMehp24 at N=512 over two 256 x 256
+     parts on phase 12's MEHP24 chain; each sort max error < 0.01.
+Phases 7-13 run butterfly contexts: each must launch K2 and never K1, with
+the counts set to 0 just before and read just after.  Every phase from 5 on
+reckons its memory first (`hbm_budget.check_phase`, with the path's
+measured working set) and fails where its measured peak exceeds that
+budget.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 
 Bounds in the JSON record: `bound_ms` is the least time the card could take
 for the function, a negacyclic NTT of the planes, whatever algorithm a kernel
-chose: the larger of the bytes it must move (data in, data out, one [L, n]
-twiddle table) over the card's 3.35 TB/s and the (n/2) log2(n) butterflies a
-plane, ten 32-bit integer operations each, over 67 T op/s (the published
-float32 rate of the CUDA cores, a multiply-add counted as two; no separate
-integer rate is published, and integer multiply-add runs no faster).  K1 and
-K2 compute the same function, so they share one bound.  `form_ops_ms` is the
+chose (`fhe_sorting_tpu_torch.utils.roofline.ntt_butterfly` on `H100`): the
+larger of the bytes it must move (data in, data out, one [L, n] twiddle
+table) over the card's 3.35 TB/s and the (n/2) log2(n) butterflies a plane,
+ten 32-bit integer operations each, over 67 T op/s (the published float32
+rate of the CUDA cores, a multiply-add counted as two; no separate integer
+rate is published, and integer multiply-add runs no faster).  K1 and K2
+compute the same function, so they share one bound.  `form_ops_ms` is the
 arithmetic of the kernel's own algorithm over the same rate: the four-step
 form of K1 does n (n1 + n2) multiply-adds a plane, far more than the function
 needs, and that excess is the kernel's to answer for, not part of its bound.
@@ -80,8 +92,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-CUDA_CORE_OPS_PER_S = 67e12
 N, RING = 128, 1 << 17
 
 
@@ -122,24 +132,29 @@ def _rand_residues(gen, shape, p):
 
 
 def _ops_ms(ops: float) -> float:
-    return ops / CUDA_CORE_OPS_PER_S * 1e3
+    from fhe_sorting_tpu_torch.utils.roofline import H100
+
+    return ops / H100.int_ops_s * 1e3
 
 
 def _ntt_bound(planes: int, limbs: int, n: int):
-    """(ms, "bytes" or "operations"): the least time for a negacyclic NTT of
-    `planes` int64 planes of n residues over `limbs` primes."""
-    by_bytes = (2 * planes * n * 8 + limbs * n * 8) / HBM_BYTES_PER_S * 1e3
-    # a butterfly: one product, its reduction (two more), an add and a subtract
-    # with their conditional corrections: ten 32-bit integer operations
-    by_ops = _ops_ms(10.0 * planes * (n // 2) * (n.bit_length() - 1))
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations"), by_ops
+    """((ms, "bytes" or "operations"), ms of the operations alone): the
+    least time for a negacyclic NTT of `planes` int64 planes of n residues
+    over `limbs` primes, `roofline.ntt_butterfly` on `roofline.H100`."""
+    from fhe_sorting_tpu_torch.utils.roofline import H100, ntt_butterfly
+
+    cost = ntt_butterfly(n, limbs, planes // limbs)
+    by = "bytes" if cost.bound(H100) == "HBM" else "operations"
+    return (cost.sol_seconds(H100) * 1e3, by), _ops_ms(cost.int_ops)
 
 
-def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi):
+def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi, report):
     """A warm-up sort, then a timed one, both through the entry point `sort`;
     every kernel's count is set to 0 just before the timed sort and read just
-    after, and the error is that sort's.  A third sort, uncounted, runs the
-    entry point's two phases by hand for their seconds."""
+    after, and the error and the peak memory (held to `report`'s budget) are
+    that sort's.  A third sort, uncounted, runs the entry point's two phases
+    by hand for their seconds.  Returns (counts, seconds, (constructRank
+    seconds, rotationIndexCheck seconds))."""
     ct = keys.encrypt(vals)
     t0 = time.time()
     sort(ct)
@@ -158,7 +173,8 @@ def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi):
     err = float(np.abs(got - np.sort(vals)).max())
     print(f"# {label} N={N}: sort {total:.3f}s; output level {out.level}, "
           f"{out.num_limbs} limbs")
-    print(f"# {label}: max sort error {err:.3e}; peak device memory {peak:.2f} GiB ({smi})")
+    print(f"# {label}: max sort error {err:.3e} ({smi})")
+    _check_memory(label, report, peak, smi)
     if not np.all(np.isfinite(got)) or got.shape != (N,):
         raise AssertionError(f"{label}: sort output is not N finite values")
     if not err < 0.01:
@@ -174,7 +190,18 @@ def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi):
         raise AssertionError(f"{label}: the two phases by hand differ from the entry point")
     print(f"# {label}, a further sort by phase: constructRank {t1 - t0:.3f}s, "
           f"rotationIndexCheck {t2 - t1:.3f}s, total {t2 - t0:.3f}s")
-    return counts, total
+    return counts, total, (t1 - t0, t2 - t1)
+
+
+def _check_memory(label, report, peak_gib, smi):
+    """Print a phase's measured peak beside what `check_phase` reckoned, and
+    fail where it exceeds the budget the reckoning was made against."""
+    from fhe_sorting_tpu_torch.utils import hbm_budget
+
+    print(f"# {label}: peak device memory {peak_gib:.2f} GiB measured, {report['used_gib']} GiB "
+          f"reckoned ({report['n_rot_keys']} rotation keys + relin, {report['n_cts']} + "
+          f"{report['work_cts']} ciphertexts), budget {report['budget_gib']} GiB ({smi})")
+    hbm_budget.check_peak(report, peak_gib)
 
 
 def _release():
@@ -211,6 +238,7 @@ def _phase7_serve(ctx2, keys, counters, smi):
     from fhe_sorting_tpu_torch.core import serialize
     from fhe_sorting_tpu_torch.core.keys import Keys
     from fhe_sorting_tpu_torch.serving import sort_server
+    from fhe_sorting_tpu_torch.utils import hbm_budget
 
     x = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     tmp = tempfile.mkdtemp(prefix="fhe_serve_")
@@ -240,6 +268,9 @@ def _phase7_serve(ctx2, keys, counters, smi):
               f"np.savez_compressed {t2 - t1:.2f}s, {sz[1]:.0f} MiB ({smi})")
         del one
         n_rot = len(keys.rot)
+        # the server holds the key set, its input and the per-op sort's
+        report = hbm_budget.check_phase(ctx2, n_rot, 4, work_cts=hbm_budget.WORK_CTS["direct_per_op"],
+                                        label="serve")
         # what decrypts the output stays with the client; every evaluation
         # key, and the device memory they hold, goes
         client = Keys(ctx=ctx2, s_coeffs=keys.s_coeffs, s_eval=keys.s_eval, pk=keys.pk)
@@ -294,7 +325,8 @@ def _phase7_serve(ctx2, keys, counters, smi):
               f"the device {secs['load_eval_keys']:.2f}s, sort {sort_s:.2f}s, write output "
               f"{secs['save_ciphertext']:.2f}s; in.npz {os.path.getsize(path['inp']) / 2**20:.1f} "
               f"MiB, out.npz {os.path.getsize(path['out']) / 2**20:.1f} MiB; max sort error "
-              f"{err:.3e}; peak device memory {peak:.2f} GiB ({smi})")
+              f"{err:.3e} ({smi})")
+        _check_memory("serve", report, peak, smi)
         if not np.all(np.isfinite(got)) or got.shape != (N,):
             raise AssertionError("serve: output is not N finite values")
         if not err < 0.01:
@@ -318,7 +350,7 @@ def _boot_env(depth, hamming, shape, budget, smi, label, pt_cache_bytes=None, n_
     evaluator's plaintext memo (None: its default)."""
     from fhe_sorting_tpu_torch.core.bootstrap import Bootstrapper
     from fhe_sorting_tpu_torch.core.context import CkksParams, Context
-    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.evaluator import _PT_CACHE_BYTES, Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
     from fhe_sorting_tpu_torch.ops.rotation import RotationComposer
     from fhe_sorting_tpu_torch.utils import hbm_budget
@@ -330,8 +362,12 @@ def _boot_env(depth, hamming, shape, budget, smi, label, pt_cache_bytes=None, n_
     logqp = sum(np.log2(float(p)) for p in ctx.all_primes)
     basis = sorted({1 << i for i in range(RING.bit_length() - 2)})
     lazy = 8
-    # resident: the basis, the conjugation key, the lazy pool
-    report = hbm_budget.check_phase(ctx, len(basis) + 1 + lazy, n_cts, label=label)
+    # resident: the basis, the conjugation key, the lazy pool; the plaintext
+    # memo at its bound (in ciphertexts) and a refresh's working set
+    memo = pt_cache_bytes or _PT_CACHE_BYTES
+    report = hbm_budget.check_phase(ctx, len(basis) + 1 + lazy,
+                                    n_cts + -(-memo // hbm_budget.ct_bytes(ctx, 0)),
+                                    work_cts=hbm_budget.WORK_CTS["bootstrap"], label=label)
     print(f"# {label}: depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}, logQP={logqp:.0f}; "
           f"reckoned before allocating: {report}")
     keys = Keys.generate(ctx, seed=0)
@@ -411,9 +447,8 @@ def _phase8_bootstrap(counters, smi):
           + ", ".join(f"{k} {v:.2f}s" for k, v in stage_s.items())
           + f"; rotations {rots}, composed {composed}, lazy keygens {lazy}")
     print(f"# bootstrap: plaintext memo {ev.pt_stats['misses']} misses, {ev.pt_stats['hits']} hits, "
-          f"{ev.pt_stats['encode_s']:.2f}s of host encoding in the second refresh; peak device "
-          f"memory {peak:.2f} GiB measured, {report['used_gb']} GB reckoned for keys and "
-          f"ciphertexts ({smi})")
+          f"{ev.pt_stats['encode_s']:.2f}s of host encoding in the second refresh ({smi})")
+    _check_memory("bootstrap", report, peak, smi)
     if not out.level + (out.sdeg == 2) <= depth - 2:
         raise AssertionError(f"bootstrap: fewer than two levels left (level {out.level})")
     if not out.level < ct_low.level:
@@ -434,8 +469,8 @@ def _phase9_bitonic(counters, smi, n=8):
     # the evaluator's default plaintext memo: one refresh's plaintexts at this
     # depth are over 24 GiB, and a memo smaller than that cyclic working set
     # never hits, so a larger one would only take memory
-    ctx, keys, ev, rot, bs, _ = _boot_env(depth, 64, BOOT_SPARSE, (3, 3), smi,
-                                          "bitonic (sparse secret, hamming 64)")
+    ctx, keys, ev, rot, bs, report = _boot_env(depth, 64, BOOT_SPARSE, (3, 3), smi,
+                                               "bitonic (sparse secret, hamming 64)")
     keys.gen_rotation_keys([-(1 << i) for i in range(n.bit_length() - 1)])
     fired = []
 
@@ -457,7 +492,8 @@ def _phase9_bitonic(counters, smi, n=8):
     err = float(np.abs(got - np.sort(x)).max())
     print(f"# bitonic N={n}, ring 2^17: {secs:.2f}s, bootstraps fired at levels {fired}, output "
           f"level {out.level}; max sort error {err:.3e}; plaintext memo {ev.pt_stats}; "
-          f"lazy keygens {rot.stats.lazy_keygens}; peak device memory {peak:.2f} GiB ({smi})")
+          f"lazy keygens {rot.stats.lazy_keygens} ({smi})")
+    _check_memory("bitonic", report, peak, smi)
     if not np.all(np.isfinite(got)) or got.shape != (n,):
         raise AssertionError("bitonic: output is not N finite values")
     if len(fired) < 1:
@@ -484,7 +520,8 @@ def _phase10_mehp24(counters, smi, n=64):
                              ntt_impl="butterfly"))
     pow2 = {1 << i for i in range(RING.bit_length() - 2)}
     steps = sorted(rotation_indices_mehp24(n) | pow2 | {-s for s in pow2})
-    report = hbm_budget.check_phase(ctx, len(steps), 6, label=f"MEHP24 N={n}")
+    report = hbm_budget.check_phase(ctx, len(steps), 6, work_cts=hbm_budget.WORK_CTS["mehp24"],
+                                    label=f"MEHP24 N={n}")
     print(f"# mehp24: depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}; reckoned before "
           f"allocating: {report}")
     keys = Keys.generate(ctx, seed=0)
@@ -505,8 +542,8 @@ def _phase10_mehp24(counters, smi, n=64):
     got = keys.decrypt(out, n)
     err = float(np.abs(got - np.sort(x)).max())
     print(f"# mehp24 N={n} ({n * n} slots), ring 2^17: {secs:.2f}s, output level {out.level}; "
-          f"max sort error {err:.3e}; rotations {srt.rot.stats.rotations}; peak device memory "
-          f"{peak:.2f} GiB measured, {report['used_gb']} GB reckoned ({smi})")
+          f"max sort error {err:.3e}; rotations {srt.rot.stats.rotations} ({smi})")
+    _check_memory("mehp24", report, peak, smi)
     if not np.all(np.isfinite(got)) or got.shape != (n,):
         raise AssertionError("mehp24: output is not N finite values")
     if not err < 0.01:
@@ -535,7 +572,7 @@ def _phase11_kway(counters, smi, n=16):
     (`kway_run.build`), then one five-sorter stage on its context and keys."""
     from fhe_sorting_tpu_torch.models.kway import KWaySorter
     from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
-    from fhe_sorting_tpu_torch.utils import kway_run
+    from fhe_sorting_tpu_torch.utils import hbm_budget, kway_run
 
     t0 = time.time()
     run = kway_run.build(n)
@@ -564,9 +601,9 @@ def _phase11_kway(counters, smi, n=16):
           f"{st.lazy_keygens}; plaintext memo {pt['misses']} misses, "
           f"{pt['hits']} hits, {pt['encode_s']:.2f}s of host encoding, "
           f"{run.ev._pt_cache_used / 2**30:.2f} GiB held; peak device memory {peak:.2f} GiB "
-          f"measured against the {run.report['budget_gb']} GiB budget, {run.report['used_gb']} "
+          f"measured against the {run.report['budget_gib']} GiB budget, {run.report['used_gib']} "
           f"GiB reckoned for keys, ciphertexts and a refresh ({smi})")
-    kway_run.check_peak(run, peak)
+    hbm_budget.check_peak(run.report, peak)
     if not np.all(np.isfinite(got)) or got.shape != (n,):
         raise AssertionError("k-way: output is not N finite values")
     if len(run.fired) < 1:
@@ -613,18 +650,131 @@ def _phase12_staged_large(counters, smi, n=512):
         got = keys.decrypt(out, n)
         err = float(np.abs(got - np.sort(x)).max())
         phases = ", ".join(f"{k} {v:.2f}s" for k, v in info["phase_s"].items())
-        used = max(r["used_gb"] for r in info["reports"])
         print(f"# {info['what']}, ring 2^17: depth {info['depth']}, Lq={ctx.num_q}, "
               f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; setup {setup_s:.1f}s; sort "
               f"{secs:.2f}s{f' ({phases})' if phases else ''}, output level {out.level}; max sort "
-              f"error {err:.3e}; peak device memory {peak:.2f} GiB measured, {used} GB "
-              f"reckoned ({smi})")
+              f"error {err:.3e} ({smi})")
+        _check_memory(label, max(info["reports"], key=lambda r: r["used_gib"]), peak, smi)
         if not np.all(np.isfinite(got)) or not err < 0.01:
             raise AssertionError(f"{label}: sort error {err} >= 0.01")
         k2 += _require_k2_only(label, counts)
         del ctx, keys, sort, info, ct, out
         _release()
     return k2
+
+
+def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
+    """The multi-device sorts on a one-rank NCCL world on this card: the
+    sharded DirectSort at N=1024 and the sharded MEHP24 triangle at N=512,
+    each against the budget its memory was reckoned with, and a limb-parallel
+    mult + rescale + rotate on a (1 x 1) mesh bit-equal to the plain
+    evaluator.  Returns the K2 launches of the three."""
+    import torch.distributed as dist
+
+    from fhe_sorting_tpu_torch.parallel.limb_parallel import LimbParallelEvaluator
+    from fhe_sorting_tpu_torch.parallel.mesh import init_world, make_mesh, make_mesh_2d
+    from fhe_sorting_tpu_torch.utils import large_sort
+
+    tmp = tempfile.mkdtemp(prefix="fhe_world_")
+    init_world("nccl", 0, 1, os.path.join(tmp, "init"))
+    try:
+        mesh = make_mesh()
+        # -- the sharded DirectSort
+        t0 = time.time()
+        ctx, keys, srt, info = large_sort.sharded_direct(n, mesh)
+        _sync()
+        setup_s = time.time() - t0
+        print(f"# {info['what']}, ring 2^17: depth {info['depth']} (metered on the sharded "
+              f"class), Lq={ctx.num_q}, K={ctx.num_sp}, logQP {info['logqp']:.1f} against "
+              f"{large_sort.LOGQP_128}; reckoned before allocating: {info['reports'][0]}; setup "
+              f"{setup_s:.1f}s ({len(keys.rot)} rotation keys + relin) ({smi})")
+        x = np.random.default_rng(0).permutation(n) / n + 0.5 / n
+        ct = keys.encrypt(x, slots=n)
+        t0 = time.time()
+        srt(ct)
+        _sync()
+        warm_s = time.time() - t0
+        out, secs, counts = _counted(counters, lambda: srt(ct))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = keys.decrypt(out, n)
+        err = float(np.abs(got - np.sort(x)).max())
+        print(f"# sharded DirectSort N={n}: warm-up {warm_s:.2f}s, sort {secs:.2f}s (the staged "
+              f"N=1024 sort, `large_sort --path staged`, took 72.76 s on an H100 at 700 W), "
+              f"output level {out.level}; max sort error {err:.3e} ({smi})")
+        _check_memory(f"sharded DirectSort N={n}", info["reports"][0], peak, smi)
+        if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
+            raise AssertionError(f"sharded DirectSort: sort error {err} >= 0.01")
+        k2 = _require_k2_only("sharded DirectSort", counts)
+
+        # -- limb parallelism on a (1 x 1) mesh, through the NCCL all-gathers
+        lp = LimbParallelEvaluator(srt.ev, make_mesh_2d(1, 1))
+        y = keys.encrypt(np.random.default_rng(7).uniform(-1, 1, RING // 2), seed=7)
+        sh = lp.ingest(y)
+
+        def limb_ops():
+            return lp.gather(lp.rotate(lp.rescale(lp.mult(sh, sh)), 1))
+
+        plain = srt.ev.rotate(srt.ev.rescale(srt.ev.mult(y, y)), 1)
+        sharded, limb_s, counts = _counted(counters, limb_ops)
+        if not torch.equal(sharded.data, plain.data):
+            raise AssertionError("limb-parallel mult + rescale + rotate differs from the plain one")
+        print(f"# limb-parallel mult + rescale + rotate on a (1 x 1) NCCL mesh, ring 2^17: "
+              f"bit-equal to the plain evaluator, {limb_s:.3f}s ({smi})")
+        k2 += _require_k2_only("limb-parallel", counts)
+        del ctx, keys, srt, info, ct, out, lp, y, sh, sharded, plain
+        _release()
+
+        # -- the sharded MEHP24 triangle
+        t0 = time.time()
+        ctx, keys, srt, info = large_sort.sharded_mehp24(n_mehp, mesh)
+        _sync()
+        setup_s = time.time() - t0
+        print(f"# {info['what']}, ring 2^17: depth {info['depth']}, Lq={ctx.num_q}, "
+              f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; reckoned before allocating: "
+              f"{info['reports'][0]}; setup {setup_s:.1f}s ({smi})")
+        x = np.random.default_rng(6).permutation(n_mehp) / n_mehp + 0.5 / n_mehp
+        tile = large_sort.TILE
+        parts = []
+        for i in range(n_mehp // tile):
+            pad = np.zeros(info["slots"])
+            pad[:tile] = x[i * tile:(i + 1) * tile]
+            parts.append(keys.encrypt(pad, slots=info["slots"]))
+        out, secs, counts = _counted(counters, lambda: srt(parts))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = np.concatenate([keys.decrypt(c, tile) for c in out])
+        err = float(np.abs(got - np.sort(x)).max())
+        print(f"# sharded MEHP24 N={n_mehp}: sort {secs:.2f}s (phase 12 above sorts N=512 on the "
+              f"staged MEHP24, 8.18 s on an H100 at 700 W), output level {out[0].level}; max "
+              f"sort error {err:.3e} ({smi})")
+        _check_memory(f"sharded MEHP24 N={n_mehp}", info["reports"][0], peak, smi)
+        if not np.all(np.isfinite(got)) or got.shape != (n_mehp,) or not err < 0.01:
+            raise AssertionError(f"sharded MEHP24: sort error {err} >= 0.01")
+        k2 += _require_k2_only("sharded MEHP24", counts)
+        del ctx, keys, srt, info, parts, out
+        _release()
+        return k2
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _roofline_line(ctx, srt, phase_s, smi):
+    """The staged sort's share of the speed of light on this card, phase by
+    phase: `roofline.accumulate_sol` over one sort's `phase_stats()` (the
+    sorts so far issued the same ops each; stage D runs once a sort) against
+    the phase seconds `_run_sort` measured."""
+    from fhe_sorting_tpu_torch.utils import roofline
+
+    sorts = srt.stages["D"].calls
+    for (phase, stats), secs in zip(srt.phase_stats().items(), phase_s):
+        one = {k: v // sorts for k, v in stats.items()}
+        sol, by_op = roofline.accumulate_sol(ctx, one)
+        units = roofline.sol_by_bound(ctx, one)
+        print(f"# roofline, staged N={N} {phase} (K1 context): measured {secs:.3f}s, SoL "
+              f"{sol * 1e3:.2f} ms on {roofline.H100.name} = {100 * sol / secs:.2f}% of SoL; "
+              f"bound by {max(units, key=units.get)} "
+              f"({', '.join(f'{u} {t * 1e3:.2f} ms' for u, t in units.items())}); by op: "
+              f"{', '.join(f'{k} {t * 1e3:.2f} ms' for k, t in by_op.items())} ({smi})")
 
 
 def main() -> int:
@@ -640,6 +790,7 @@ def main() -> int:
     from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
     from fhe_sorting_tpu_torch.parallel.direct_staged import (
         StagedDirectSort, scan_rotation_indices)
+    from fhe_sorting_tpu_torch.utils import hbm_budget
     from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
     from fhe_sorting_tpu_torch.utils.params_registry import direct_sort_sign_cfg
 
@@ -773,37 +924,43 @@ def main() -> int:
 
     # -- phase 5: the staged path (four-step context, K1) ----------------------
     t0 = time.time()
+    scan = sorted(scan_rotation_indices(N, RING))
+    report = hbm_budget.check_phase(ctx, len(scan), 4, work_cts=hbm_budget.WORK_CTS["direct_staged"],
+                                    label=f"staged N={N}")
     keys = Keys.generate(ctx, seed=0)
-    keys.gen_rotation_keys(sorted(scan_rotation_indices(N, RING)))
+    keys.gen_rotation_keys(scan)
     srt = StagedDirectSort(Evaluator(ctx, keys), N, cfg)
     _sync()
     print(f"# staged: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s")
-    (k1_launches, k2_stray), staged_s = _run_sort(
+    (k1_launches, k2_stray), staged_s, phase_s = _run_sort(
         "staged", keys, vals, srt, srt.construct_rank, srt.index_check,
-        (fs_ntt, bf_ntt), smi)
+        (fs_ntt, bf_ntt), smi, report)
     print(f"# staged: K1 launches {k1_launches}, K2 launches {k2_stray}; "
           f"stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
     if k1_launches <= 0 or k2_stray != 0:
         raise AssertionError("the staged path must launch K1 and not K2")
+    _roofline_line(ctx, srt, phase_s, smi)
     del srt, keys, ctx, fs, k1
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- phase 6: the per-op path (butterfly context, K2) ----------------------
     t0 = time.time()
-    keys = Keys.generate(ctx2, seed=0)
     steps = sorted(rotation_indices_direct_sort(N, RING))
+    report = hbm_budget.check_phase(ctx2, len(steps), 4, work_cts=hbm_budget.WORK_CTS["direct_per_op"],
+                                    label=f"per-op N={N}")
+    keys = Keys.generate(ctx2, seed=0)
     keys.gen_rotation_keys(steps)
     ev = Evaluator(ctx2, keys)
     srt = DirectSort(ev, N)
     _sync()
     print(f"# per-op: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    (k1_stray, k2_launches), per_op_s = _run_sort(
+    (k1_stray, k2_launches), per_op_s, _ = _run_sort(
         "per-op", keys, vals,
         lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
         lambda ct: srt.construct_rank(ct, SignFunc.CompositeSign, cfg),
-        srt.rotation_index_check_n, (fs_ntt, bf_ntt), smi)
+        srt.rotation_index_check_n, (fs_ntt, bf_ntt), smi, report)
     print(f"# per-op: K2 launches {k2_launches}, K1 launches {k1_stray}; "
           f"over the three sorts: {srt.rot.stats}")
     if k2_launches <= 0 or k1_stray != 0:
@@ -812,8 +969,8 @@ def main() -> int:
           f"({smi})")
     del srt, ev
 
-    # -- phases 7-12: the serving path, what stands behind it, the k-way network
-    # and the staged N>256 regimes -----------------------------------------------
+    # -- phases 7-13: the serving path, what stands behind it, the k-way network,
+    # the staged N>256 regimes and the sharded sorts ------------------------------
     counters = (fs_ntt, bf_ntt)
     by_phase = {"per-op sort": k2_launches}
     by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
@@ -821,7 +978,8 @@ def main() -> int:
     _release()
     for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
                         ("mehp24", _phase10_mehp24), ("characterizer", _characterizer_line),
-                        ("k-way", _phase11_kway), ("staged N>256 regimes", _phase12_staged_large)):
+                        ("k-way", _phase11_kway), ("staged N>256 regimes", _phase12_staged_large),
+                        ("sharded sorts", _phase13_sharded)):
         by_phase[name] = phase(counters, smi)
         _release()
     k2_launches = sum(by_phase.values())

@@ -20,6 +20,7 @@ from __future__ import annotations
 import hashlib
 import time
 from collections import Counter, OrderedDict
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -69,6 +70,20 @@ class Evaluator:
         m = int(np.rint(np.float64(c) * scale))
         Ll = self.ctx.limbs_at(level)
         return self.ctx.tensor([[m % p] for p in self.ctx.q_primes[:Ll]])
+
+    # The limb-local ops (add, sub, negate, the products and the tensor
+    # product, the automorphism's permutation) take their primes from
+    # `moduli`, a plaintext's planes from `_pt_planes` and the key switch
+    # from `_keyswitch_core`: a limb-parallel evaluator overrides those
+    # three and `_scalar_limbs` to run the same ops on its block of limbs.
+
+    def moduli(self, a: Ciphertext) -> torch.Tensor:
+        """The primes [L, 1] of a's limb planes."""
+        return self.ctx.p_active(a.level)
+
+    def _pt_planes(self, pt: Plaintext) -> torch.Tensor:
+        """The plaintext's limb planes that the ops compute on."""
+        return pt.data
 
     # -- plaintext construction --------------------------------------------
 
@@ -127,11 +142,11 @@ class Evaluator:
         self.op_stats[("add", a.level)] += 1
         if isinstance(b, Ciphertext):
             a, b = self._align_add(a, b)
-            return a.with_data(add_mod(a.data, b.data, self.ctx.p_active(a.level)))
-        p = self.ctx.p_active(a.level)
+            return a.with_data(add_mod(a.data, b.data, self.moduli(a)))
+        p = self.moduli(a)
         if isinstance(b, Plaintext):
             assert b.level == a.level and b.sdeg == a.sdeg, "pt/ct mismatch"
-            return self._on_c0(a, lambda c0: add_mod(c0, b.data, p))
+            return self._on_c0(a, lambda c0: add_mod(c0, self._pt_planes(b), p))
         sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, a.sdeg))
         return self._on_c0(a, lambda c0: add_mod(c0, sc, p))
 
@@ -139,11 +154,11 @@ class Evaluator:
         self.op_stats[("add", a.level)] += 1
         if isinstance(b, Ciphertext):
             a, b = self._align_add(a, b)
-            return a.with_data(sub_mod(a.data, b.data, self.ctx.p_active(a.level)))
+            return a.with_data(sub_mod(a.data, b.data, self.moduli(a)))
         if isinstance(b, Plaintext):
             assert b.level == a.level and b.sdeg == a.sdeg, "pt/ct mismatch"
-            p = self.ctx.p_active(a.level)
-            return self._on_c0(a, lambda c0: sub_mod(c0, b.data, p))
+            p = self.moduli(a)
+            return self._on_c0(a, lambda c0: sub_mod(c0, self._pt_planes(b), p))
         return self.add(a, -float(b))
 
     def rsub(self, b, a: Ciphertext) -> Ciphertext:
@@ -151,7 +166,7 @@ class Evaluator:
         return self.add(self.negate(a), b)
 
     def negate(self, a: Ciphertext) -> Ciphertext:
-        return a.with_data(neg_mod(a.data, self.ctx.p_active(a.level)))
+        return a.with_data(neg_mod(a.data, self.moduli(a)))
 
     # -- level / scale adjustment ------------------------------------------
 
@@ -188,7 +203,7 @@ class Evaluator:
 
     def _to_sdeg2(self, a: Ciphertext) -> Ciphertext:
         sc = self._scalar_limbs(1.0, a.level, self.ctx.scale(a.level, 1))
-        return Ciphertext(mulmod(a.data, sc, self.ctx.p_active(a.level)), a.level, 2, a.slots)
+        return replace(a, data=mulmod(a.data, sc, self.moduli(a)), sdeg=2)
 
     def align_group(self, cts):
         """Common (level, sdeg) for a group."""
@@ -241,13 +256,13 @@ class Evaluator:
         if a.sdeg == 2:
             a = self.rescale(a)
         self.op_stats[("mult_pt", a.level)] += 1
-        p = self.ctx.p_active(a.level)
+        p = self.moduli(a)
         if isinstance(b, Plaintext):
             assert b.level == a.level and b.sdeg == 1, (
                 f"plaintext at level {b.level}/deg {b.sdeg}, ct at {a.level}")
-            return Ciphertext(mulmod(a.data, b.data, p), a.level, 2, a.slots)
+            return replace(a, data=mulmod(a.data, self._pt_planes(b), p), sdeg=2)
         sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, 1))
-        return Ciphertext(mulmod(a.data, sc, p), a.level, 2, a.slots)
+        return replace(a, data=mulmod(a.data, sc, p), sdeg=2)
 
     def mult_plain_at(self, a: Ciphertext, values, roll: int = 0) -> Ciphertext:
         """Multiply by np.roll(values, roll) encoded at a's (post-rescale)
@@ -261,9 +276,8 @@ class Evaluator:
         # np.roll(v, s) = slot left-rotation by -s
         perm = self.ctx.galois_perm(self.ctx.galois_element_rot(-roll))
         self.op_stats[("mult_pt", a.level)] += 1
-        rolled = pt.data[:, perm]
-        return Ciphertext(mulmod(a.data, rolled, self.ctx.p_active(a.level)),
-                          a.level, 2, a.slots)
+        rolled = self._pt_planes(pt)[:, perm]
+        return replace(a, data=mulmod(a.data, rolled, self.moduli(a)), sdeg=2)
 
     def _mult_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         if a.sdeg == 2:
@@ -274,27 +288,25 @@ class Evaluator:
             a = self.adjust_level(a, b.level)
         elif b.level < a.level:
             b = self.adjust_level(b, a.level)
-        p = self.ctx.p_active(a.level)
+        p = self.moduli(a)
         a0, a1 = a.data[0], a.data[1]
         b0, b1 = b.data[0], b.data[1]
         d0 = mulmod(a0, b0, p)
         d1 = add_mod(mulmod(a0, b1, p), mulmod(a1, b0, p), p)
         e0, e1 = self._keyswitch_core(mulmod(a1, b1, p), a.level, self.keys.relin)
-        return Ciphertext(torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]),
-                          a.level, 2, a.slots)
+        return replace(a, data=torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]), sdeg=2)
 
     def square(self, a: Ciphertext) -> Ciphertext:
         self.op_stats[("mult_ct", a.level + (a.sdeg == 2))] += 1
         if a.sdeg == 2:
             a = self._rescale_impl(a)
-        p = self.ctx.p_active(a.level)
+        p = self.moduli(a)
         a0, a1 = a.data[0], a.data[1]
         d0 = mulmod(a0, a0, p)
         cross = mulmod(a0, a1, p)
         d1 = add_mod(cross, cross, p)
         e0, e1 = self._keyswitch_core(mulmod(a1, a1, p), a.level, self.keys.relin)
-        return Ciphertext(torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]),
-                          a.level, 2, a.slots)
+        return replace(a, data=torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]), sdeg=2)
 
     # -- key switching -----------------------------------------------------
 
@@ -349,12 +361,11 @@ class Evaluator:
         assert g in self.keys.rot, f"missing rotation key for galois {g}"
         return self.keys.rot[g]
 
-    def _automorphism(self, a: Ciphertext, g: int) -> Ciphertext:
-        ksk = self._rot_key(g)
+    def _automorphism(self, a: Ciphertext, g: int, ksk: KeySwitchKey | None = None) -> Ciphertext:
+        ksk = self._rot_key(g) if ksk is None else ksk
         d = a.data[..., self.ctx.galois_perm(g)]
         e0, e1 = self._keyswitch_core(d[1], a.level, ksk)
-        c0 = add_mod(d[0], e0, self.ctx.p_active(a.level))
-        return Ciphertext(torch.stack([c0, e1]), a.level, a.sdeg, a.slots)
+        return a.with_data(torch.stack([add_mod(d[0], e0, self.moduli(a)), e1]))
 
     def rotate(self, a: Ciphertext, r: int) -> Ciphertext:
         """Left slot-rotation by r (negative = right)."""
@@ -362,6 +373,14 @@ class Evaluator:
             return a
         self.op_stats[("rot", a.level)] += 1
         return self._automorphism(a, self.ctx.galois_element_rot(r))
+
+    def rotate_with_key(self, a: Ciphertext, r: int, ksk: KeySwitchKey) -> Ciphertext:
+        """Left slot-rotation by r with the key `ksk`, key-switched even where
+        r is a multiple of the slot count (galois element 1: a key to s
+        itself).  The sharded DirectSort's batch offsets, one uniform program
+        for every batch."""
+        self.op_stats[("rot", a.level)] += 1
+        return self._automorphism(a, self.ctx.galois_element_rot(r), ksk)
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         self.op_stats[("rot", a.level)] += 1

@@ -12,9 +12,10 @@ reference's, each a plain eager call here (no tracing):
                        H  mask-mult + pre-rotations + blind-rotation Horner
            once:       I  batch Horner recombine + fold + SetSlots
 
-`run_stage` counts each stage's calls and the evaluator ops it issued, for a
-later roofline; `verbose` prints per-stage seconds (synchronizing the
-device first).  Key set: `scan_rotation_indices`.
+`run_stage` counts each stage's calls and the evaluator ops it issued;
+`stage_stats` and `phase_stats` sum them for the roofline
+(`utils/roofline.accumulate_sol`); `verbose` prints per-stage seconds
+(synchronizing the device first).  Key set: `scan_rotation_indices`.
 """
 
 from __future__ import annotations
@@ -98,6 +99,20 @@ class StagedDirectSort:
 
     def _run(self, name: str, fn, cts):
         return run_stage(self.ev, self.stages, self.verbose, name, fn, cts)
+
+    def stage_stats(self) -> Counter:
+        """Evaluator ops of every stage call so far, summed (each stage's
+        `op_counts` already holds all its calls: the reference's per-dispatch
+        tally times its calls)."""
+        return sum((st.op_counts for st in self.stages.values()), Counter())
+
+    def phase_stats(self) -> dict:
+        """`stage_stats` split into constructRank (stages A-D) and
+        rotationIndexCheck (E-I), for the per-phase roofline."""
+        out = {"constructRank": Counter(), "rotationIndexCheck": Counter()}
+        for name, st in self.stages.items():
+            out["constructRank" if name[0] in "ABCD" else "rotationIndexCheck"] += st.op_counts
+        return out
 
     # -- phase 1: constructRank -------------------------------------------
 

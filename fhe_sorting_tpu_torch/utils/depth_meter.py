@@ -41,9 +41,14 @@ class _AllRot:
     def __contains__(self, g) -> bool:   # composer key probes
         return True
 
+    def __getitem__(self, g):            # a data-free key (sharded offsets)
+        return None
+
 
 class _AllKeys:
-    rot = _AllRot()
+    def __init__(self, ctx: _MeterCtx):
+        self.ctx = ctx
+        self.rot = _AllRot()
 
 
 class MeterEvaluator:
@@ -51,7 +56,7 @@ class MeterEvaluator:
 
     def __init__(self, ring_n: int):
         self.ctx = _MeterCtx(ring_n)
-        self.keys = _AllKeys()
+        self.keys = _AllKeys(self.ctx)
         self.op_stats: Counter = Counter()
         self.max_level = 0
         self.mults = 0
@@ -156,6 +161,10 @@ class MeterEvaluator:
         return a
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
+        return a
+
+    def rotate_with_key(self, a: Ciphertext, r: int, ksk) -> Ciphertext:
+        self.rotations += 1
         return a
 
     def rotate_precompute(self, a: Ciphertext):

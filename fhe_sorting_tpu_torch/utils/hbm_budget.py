@@ -14,7 +14,12 @@ Sizes (every plane is int64 in this package: `RESIDUE_BYTES` = 8):
     counted by the headroom fraction rather than itemized.
 
 The capacity is the context device's own (`torch.cuda.get_device_properties`);
-on the CPU there is none to ask, and the caller passes `capacity_gb`.
+on the CPU there is none to ask, and the caller passes `capacity_gb`.  Every
+size is in binary units (GiB, MiB), the capacity too.
+
+Each path reckons its keys and long-lived ciphertexts by count, and what its
+ops hold in flight as `WORK_CTS[path]` top-level ciphertexts, measured on the
+card.  After it runs, `check_peak` holds the measured peak to the budget.
 """
 
 from __future__ import annotations
@@ -25,6 +30,40 @@ RESIDUE_BYTES = torch.empty((), dtype=torch.int64).element_size()
 # left for the caching allocator's slack, key-switch temporaries ([dnum, Lq+K,
 # n] extended digits) and the context's tables
 DEFAULT_HEADROOM_FRAC = 0.20
+# A path's working set: the ciphertexts its ops hold in flight beyond the
+# long-lived ones it counts, in top-level ciphertexts of its chain, from a
+# peak measured on an H100 80GB HBM3 at 700 W at the path's largest
+# configuration: (peak - resident keys - long-lived cts) / ct_bytes(ctx, 0),
+# rounded up.
+WORK_CTS = {
+    # DirectSort N=1024 staged, 27.10 GiB: 10 keys x 0.674 + 4 cts x 0.168 GiB
+    # (`large_sort --n 1024 --path staged`)
+    "direct_staged": 118,
+    # N=1024 per-op, 8 lazy keys, 26.55 GiB: 9 keys, 8 cts (`large_sort`)
+    "direct_per_op": 114,
+    # staged hybrid N=512, 18.50 GiB: 11 keys x 1.172 + 4 cts x 0.195 GiB
+    # (`chip_smoke.py` phase 12)
+    "hybrid_staged": 25,
+    # MEHP24 N=64, 35.52 GiB: 44 keys x 0.703 + 6 cts x 0.176 GiB (phase 10)
+    "mehp24": 21,
+    # staged MEHP24 N=512, 21.91 GiB: 17 keys x 0.9375 + 12 cts x 0.1875 GiB
+    # (phase 12)
+    "mehp24_staged": 20,
+    # a uniform-secret refresh (BSGS babies, key-switch digits, the EvalMod
+    # powers): 18.3 GiB beside the keys and the k-way network's ciphertexts
+    # at depth 42, 110 x 176 MiB rounded up (phase 11)
+    "bootstrap": 110,
+    # The two sharded terms were fitted to the first run of `chip_smoke.py`
+    # phase 13, the run their reckoning then checks: there it restates that
+    # run and predicts nothing.
+    # sharded DirectSort N=1024 on one rank, 45.19 GiB: 20 rotation + 16
+    # offset keys + relin = 37 keys x 0.674 + 4 cts x 0.168 GiB
+    "direct_sharded": 117,
+    # sharded MEHP24 N=512 on one rank, 50.72 GiB: 47 rotation keys (the
+    # 48 steps of `rotation_indices_mehp24(256)`, +-2^15 one galois element)
+    # + relin = 48 keys x 0.9375 + 12 cts x 0.1875 GiB
+    "mehp24_sharded": 19,
+}
 
 
 def device_capacity_gb(ctx) -> float:
@@ -73,19 +112,29 @@ def check_phase(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
     budget = capacity_gb * (1 - headroom_frac) * (1 << 30)
     report = {
         "label": label,
-        "ksk_mb": round(ksk_bytes(ctx) / (1 << 20), 1),
-        "ct_mb": round(ct_bytes(ctx, 0) / (1 << 20), 1),
+        "ksk_mib": round(ksk_bytes(ctx) / (1 << 20), 1),
+        "ct_mib": round(ct_bytes(ctx, 0) / (1 << 20), 1),
         "n_rot_keys": n_rot_keys,
         "n_cts": n_cts,
-        "used_gb": round(used / (1 << 30), 2),
-        "budget_gb": round(budget / (1 << 30), 2),
+        "work_cts": work_cts,
+        "used_gib": round(used / (1 << 30), 2),
+        "budget_gib": round(budget / (1 << 30), 2),
         "fits": used <= budget,
     }
     if not report["fits"]:
         raise MemoryError(
-            f"device memory budget: {label} needs {report['used_gb']} GB "
-            f"({n_rot_keys} rot keys x {report['ksk_mb']} MB + "
-            f"{n_cts}+{work_cts} cts x {report['ct_mb']} MB) "
-            f"> {report['budget_gb']} GB available "
-            f"({capacity_gb:.1f} GB on the device - {headroom_frac:.0%} headroom)")
+            f"device memory budget: {label} needs {report['used_gib']} GiB "
+            f"({n_rot_keys} rot keys x {report['ksk_mib']} MiB + "
+            f"{n_cts}+{work_cts} cts x {report['ct_mib']} MiB) "
+            f"> {report['budget_gib']} GiB available "
+            f"({capacity_gb:.1f} GiB on the device - {headroom_frac:.0%} headroom)")
     return report
+
+
+def check_peak(report: dict, peak_gib: float) -> None:
+    """Raise where a measured peak of device memory (GiB) exceeds the
+    budget `report` (from `check_phase`) was reckoned against."""
+    if peak_gib > report["budget_gib"]:
+        raise MemoryError(f"{report['label']}: peak device memory {peak_gib:.2f} GiB exceeds "
+                          f"the {report['budget_gib']} GiB budget of the reckoning "
+                          f"({report['used_gib']} GiB reckoned)")

@@ -36,16 +36,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import hbm_budget
+
 RING = 1 << 17
 DEPTH = 42
 LOGQP_128 = {1 << 17: 3524}      # HEStd_128_classic, ternary secret
 LAZY_KEYS = 6
-# a refresh's own working set at its peak beyond the keys and the network's
-# ciphertexts (BSGS babies, key-switch digits, the EvalMod powers), in
-# top-level ciphertexts: 110 x 176 MiB = 18.9 GiB at ring 2^17, rounded up
-# from the 18.3 GiB the card held at this configuration on an H100
-# (`chip_smoke.py` phase 11 prints the peak and the memo beside it)
-REFRESH_CTS = 110
 BOOT_SHAPE = dict(K=512.0, sin_degree=270, double_angle=4, asin_terms=2)
 
 
@@ -90,7 +86,6 @@ def build(n: int = 16, ring: int = RING, device=None,
     from ..models.kway.sorter import KWaySorter, rotation_indices_kway
     from ..ops.rotation import RotationComposer
     from ..ops.sign import CompositeSignConfig, SignConfig
-    from . import hbm_budget
     from .params_registry import KWAY_CONFIG
 
     k, M, df, dg = KWAY_CONFIG[n]
@@ -108,8 +103,10 @@ def build(n: int = 16, ring: int = RING, device=None,
     basis = sorted({1 << i for i in range(ring.bit_length() - 2)} | {-(1 << i) for i in range(4)})
     steps = sorted(set(basis) | rotation_indices_kway(1 << (n - 1).bit_length()))
     # resident: the rotation keys, the conjugation key, the lazy pool; the
-    # network's ciphertexts and a refresh's working set
-    report = hbm_budget.check_phase(ctx, len(steps) + 1 + LAZY_KEYS, 8 + REFRESH_CTS,
+    # network's ciphertexts and a refresh's working set (measured on this
+    # configuration; `chip_smoke.py` phase 11 prints the peak beside it)
+    report = hbm_budget.check_phase(ctx, len(steps) + 1 + LAZY_KEYS,
+                                    8 + hbm_budget.WORK_CTS["bootstrap"],
                                     capacity_gb=capacity_gb, label=f"k-way N={n}")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_conj_key()
@@ -124,7 +121,7 @@ def build(n: int = 16, ring: int = RING, device=None,
     # hold no more than the default: an LRU smaller than the refresh's cycle
     # of plaintexts evicts each one before its next use.
     need = refresh_plaintext_bytes(ctx, bs)
-    room = (report["budget_gb"] - report["used_gb"]) * (1 << 30)
+    room = (report["budget_gib"] - report["used_gib"]) * (1 << 30)
     if need <= room:
         ev.pt_cache_bytes = need
         memo = (f"{need / 2**30:.2f} GiB (one refresh's diagonals at the whole chain's limbs; "
@@ -151,14 +148,6 @@ def build(n: int = 16, ring: int = RING, device=None,
 
     run.sorter = KWaySorter(ev, k, M, bootstrap_fn=bootstrap_fn, rot=rot)
     return run
-
-
-def check_peak(run: KwayRun, peak_gib: float) -> None:
-    """Raise where the measured peak device memory exceeds the budget that
-    `check_phase` reckoned the run's keys, ciphertexts and refresh against."""
-    if peak_gib > run.report["budget_gb"]:
-        raise MemoryError(f"k-way: peak device memory {peak_gib:.2f} GiB exceeds the "
-                          f"{run.report['budget_gb']} GiB budget of the reckoning")
 
 
 def describe(fired) -> str:
@@ -209,10 +198,10 @@ def main() -> int:
               f"{run.ev.pt_stats['misses'] - pt0['misses']} misses, "
               f"{run.ev.pt_stats['hits'] - pt0['hits']} hits, "
               f"{run.ev._pt_cache_used / 2**30:.2f} GiB held; peak device memory {peak:.2f} GiB "
-              f"measured against the {run.report['budget_gb']} GiB budget, "
-              f"{run.report['used_gb']} GiB reckoned for keys, ciphertexts and a refresh; max "
+              f"measured against the {run.report['budget_gib']} GiB budget, "
+              f"{run.report['used_gib']} GiB reckoned for keys, ciphertexts and a refresh; max "
               f"error {err:.3e} ({smi})")
-        check_peak(run, peak)
+        hbm_budget.check_peak(run.report, peak)
         ok = ok and err < 0.01 and len(run.fired) >= 1
     return 0 if ok else 1
 

@@ -15,7 +15,9 @@ and `--algo mehp24_staged` the MEHP24 triangle over sub-length 256
 (`staged_mehp24`).  All run on the butterfly NTT.  Prints the card, the
 reckoned and the measured peak memory, seconds of a warm-up sort and of a
 timed one, and the max error against np.sort; exits non-zero on an error
->= 0.01.  Needs a CUDA device.
+>= 0.01, and raises where the peak exceeds the reckoning's budget.
+`sharded_direct` and `sharded_mehp24` build the sharded sorts of
+`chip_smoke.py` phase 13.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -108,9 +110,10 @@ def staged_hybrid(N: int):
     ctx, logqp = _context(depth, 5)
     scan, place = scan_rotation_indices(N, RING), hybrid_staged_keys(N, RING, TILE)
     nb = max(1, N // TILE)
-    reports = [hbm_budget.check_phase(ctx, len(scan), 4, label="constructRank"),
+    work = hbm_budget.WORK_CTS["hybrid_staged"]
+    reports = [hbm_budget.check_phase(ctx, len(scan), 4, work_cts=work, label="constructRank"),
                # 2*nb rotated inputs + nb accumulators + rank + input
-               hbm_budget.check_phase(ctx, len(place), 3 * nb + 2, label="place")]
+               hbm_budget.check_phase(ctx, len(place), 3 * nb + 2, work_cts=work, label="place")]
     keys = Keys.generate(ctx, seed=0)
     srt = StagedHybridSort(Evaluator(ctx, keys), N, cfg, max_array=TILE)
     info = dict(depth=depth, logqp=logqp, reports=reports, slots=N, phase_s={},
@@ -155,7 +158,9 @@ def staged_mehp24(total: int):
     steps = sorted(mehp24_staged_keys(TILE, RING))
     k = total // TILE
     # the parts, their two replications, the Cv/Ch accumulators and the ranks
-    report = hbm_budget.check_phase(ctx, len(steps), 6 * k, label="MEHP24 staged")
+    report = hbm_budget.check_phase(ctx, len(steps), 6 * k,
+                                    work_cts=hbm_budget.WORK_CTS["mehp24_staged"],
+                                    label="MEHP24 staged")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
     srt = StagedMehp24Multi(Evaluator(ctx, keys), total, TILE, *sign)
@@ -163,6 +168,76 @@ def staged_mehp24(total: int):
                 what=f"staged MEHP24 N={total} over {k} tiles of {TILE}x{TILE} "
                      f"(dg_c {sign[0]}, df_c {sign[1]}, dg_i {sign[2]}, df_i {sign[3]}; "
                      f"{len(steps)} keys)")
+    return ctx, keys, srt, info
+
+
+def sharded_plan(N: int, mesh):
+    """(sign config, depth) of the sharded DirectSort of N values: the
+    registry's sign config and the depth metered on `ShardedDirectSort`."""
+    from ..ops.sign import CompositeSignConfig, SignConfig
+    from ..parallel.direct_sharded import ShardedDirectSort
+    from .params_registry import direct_sort_sign_cfg
+
+    cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(N)))
+    return cfg, _metered_depth(lambda ev: ShardedDirectSort(ev, N, cfg, mesh=mesh), N)
+
+
+def sharded_direct(N: int, mesh):
+    """(ctx, keys, sort, info) of the DirectSort of N values with its
+    batches sharded over `mesh` (`ShardedDirectSort`) at ring 2^17, dnum 3
+    (`profile_sort`'s chain): the sharded rotation keys and the num_batch
+    offset keys, all resident."""
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
+    from ..parallel.direct_sharded import ShardedDirectSort, rotation_indices_sharded
+    from . import hbm_budget
+    from .profile_sort import RING
+
+    cfg, depth = sharded_plan(N, mesh)
+    ctx, logqp = _context(depth, 3)
+    steps = sorted(rotation_indices_sharded(N, RING))
+    nb = N // min(N, (RING // 2) // N)
+    # the input, the rank, its index difference and a batch sum
+    report = hbm_budget.check_phase(ctx, len(steps) + nb, 4,
+                                    work_cts=hbm_budget.WORK_CTS["direct_sharded"],
+                                    label=f"sharded DirectSort N={N}")
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(steps)
+    srt = ShardedDirectSort(Evaluator(ctx, keys), N, cfg, mesh=mesh)
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=N, phase_s={},
+                what=f"sharded DirectSort N={N} ({nb} batches over {mesh.size()} rank(s); "
+                     f"{len(steps)} rotation + {nb} offset keys)")
+    return ctx, keys, srt, info
+
+
+def sharded_mehp24(total: int, mesh):
+    """(ctx, keys, sort, info) of the MEHP24 triangle of `total` values in
+    256 x 256 parts split over `mesh` (`ShardedMehp24`), on the staged
+    MEHP24 chain (`mehp24_plan`, dnum 4) with the keys
+    `rotation_indices_mehp24(256)` asks for.  `sort(parts)` takes the parts,
+    each holding its values in the first 256 of 256 * 256 slots."""
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
+    from ..models.mehp24.utils import rotation_indices_mehp24
+    from ..parallel.mehp24_sharded import ShardedMehp24
+    from . import hbm_budget
+
+    sign, depth = mehp24_plan(total)
+    ctx, logqp = _context(depth, 4)
+    steps = sorted(rotation_indices_mehp24(TILE))
+    k = total // TILE
+    # +-2^15 are one galois element at ring 2^17
+    n_keys = len({ctx.galois_element_rot(s) for s in steps})
+    report = hbm_budget.check_phase(ctx, n_keys, 6 * k,
+                                    work_cts=hbm_budget.WORK_CTS["mehp24_sharded"],
+                                    label=f"sharded MEHP24 N={total}")
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(steps)
+    srt = ShardedMehp24(Evaluator(ctx, keys), TILE, k, *sign, mesh=mesh)
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
+                what=f"sharded MEHP24 N={total} over {k} parts of {TILE}x{TILE} "
+                     f"({len(srt.pairs)} of {k * (k + 1) // 2} pairs on this rank; "
+                     f"{len(keys.rot)} keys)")
     return ctx, keys, srt, info
 
 
@@ -190,12 +265,14 @@ def main() -> int:
     else:
         ctx, cfg, depth = sort_context(N, args.path, "butterfly")
         resident = len(rotation_steps(N, args.path, LAZY_KEY_BUDGET)) or LAZY_KEY_BUDGET
-        report = hbm_budget.check_phase(ctx, resident, 8, label=f"{args.path} DirectSort N={N}")
+        report = hbm_budget.check_phase(ctx, resident, 8,
+                                        work_cts=hbm_budget.WORK_CTS[f"direct_{args.path}"],
+                                        label=f"{args.path} DirectSort N={N}")
         print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, Lq={ctx.num_q}, "
               f"K={ctx.num_sp}; reckoned before allocating: {report}")
         keys, sort, rot = sorter(ctx, cfg, N, args.path, LAZY_KEY_BUDGET)
     if info is not None:
-        report = max(info["reports"], key=lambda r: r["used_gb"])
+        report = max(info["reports"], key=lambda r: r["used_gib"])
         print(f"# {info['what']}, ring {ring}, depth {info['depth']}, Lq={ctx.num_q}, "
               f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; reckoned before allocating: "
               f"{info['reports']}")
@@ -223,7 +300,8 @@ def main() -> int:
     print(f"# {label} N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s"
           f"{f' ({phases})' if phases else ''}; max error {err:.3e}; lazy keygens in the timed "
           f"sort {lazy}; output level {out.level}; peak device memory {peak:.2f} GiB measured, "
-          f"{report['used_gb']} GB reckoned ({smi})")
+          f"{report['used_gib']} GiB reckoned, {report['budget_gib']} GiB budget ({smi})")
+    hbm_budget.check_peak(report, peak)
     return 0 if err < 0.01 else 1
 
 

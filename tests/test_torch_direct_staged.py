@@ -4,7 +4,9 @@ The depth meters must agree, and the whole slice must too: at N=8 on ring
 512 (the tests/test_direct_staged.py shape) both packages sort the same
 input ciphertext with the same keys (the JAX keys, converted), and the
 output limb planes must be bit-equal (tolerance 0); the port's decrypted
-error must be below 0.01, the reference's accuracy contract."""
+error must be below 0.01, the reference's accuracy contract.  The staged
+sort's op tallies (`stage_stats`, `phase_stats`) must equal the JAX
+package's, key for key."""
 
 import numpy as np
 import pytest
@@ -93,3 +95,9 @@ def test_staged_sort_n8_matches_jax():
     np.testing.assert_array_equal(out.data.numpy(), np.asarray(jout.data).astype(np.int64))
     assert float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max()) < 0.01
     assert srt.stages["A"].calls == 1 and srt.stages["A"].op_counts
+    # the roofline's op tallies, key for key
+    assert srt.stage_stats() == +jsrt.stage_stats()
+    jphases = jsrt.phase_stats()
+    assert srt.phase_stats().keys() == jphases.keys()
+    for phase, counts in srt.phase_stats().items():
+        assert counts == +jphases[phase], phase

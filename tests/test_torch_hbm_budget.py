@@ -60,7 +60,7 @@ def test_check_phase_report_and_raise(env):
     fits_gb = used / (1 << 30) / (1 - hb.DEFAULT_HEADROOM_FRAC)
     rep = hb.check_phase(ctx, 5, 2, capacity_gb=fits_gb * 1.01, label="ok")
     assert rep["fits"] and rep["n_rot_keys"] == 5 and rep["label"] == "ok"
-    assert rep["ksk_mb"] == round(hb.ksk_bytes(ctx) / (1 << 20), 1)
+    assert rep["ksk_mib"] == round(hb.ksk_bytes(ctx) / (1 << 20), 1)
     with pytest.raises(MemoryError, match="tight needs"):
         hb.check_phase(ctx, 5, 2, capacity_gb=fits_gb * 0.99, label="tight")
     # the headroom is part of the budget

@@ -29,7 +29,7 @@ from fhe_sorting_tpu_torch.models.kway import adapter as tadapter
 from fhe_sorting_tpu_torch.models.kway import eval_utils as teu
 from fhe_sorting_tpu_torch.models.kway import masking as tmask
 from fhe_sorting_tpu_torch.ops import sign as tsign
-from fhe_sorting_tpu_torch.utils import kway_run
+from fhe_sorting_tpu_torch.utils import hbm_budget, kway_run
 
 from .utils import vector_with_min_diff
 
@@ -235,18 +235,18 @@ def test_kway_run_keeps_the_default_memo_where_one_refresh_does_not_fit():
     the evaluator's default."""
     roomy = kway_run.build(16, ring=1024, device="cpu", capacity_gb=80.0)
     need = kway_run.refresh_plaintext_bytes(roomy.ctx, roomy.bs)
-    assert roomy.report["n_cts"] == 8 + kway_run.REFRESH_CTS
-    capacity = (roomy.report["used_gb"] + need / 2 / 2**30) / 0.8
+    assert roomy.report["n_cts"] == 8 + hbm_budget.WORK_CTS["bootstrap"]
+    capacity = (roomy.report["used_gib"] + need / 2 / 2**30) / 0.8
     run = kway_run.build(16, ring=1024, device="cpu", capacity_gb=capacity)
     assert run.ev.pt_cache_bytes == Evaluator(run.ctx, run.keys).pt_cache_bytes
     assert run.memo.startswith("the default")
 
 
 def test_kway_run_check_peak_fails_over_the_budget():
-    run = SimpleNamespace(report={"budget_gb": 63.34})
-    kway_run.check_peak(run, 63.0)
+    run = SimpleNamespace(report={"budget_gib": 63.34, "used_gib": 40.33, "label": "k-way"})
+    hbm_budget.check_peak(run.report, 63.0)
     with pytest.raises(MemoryError, match="67.84 GiB exceeds the 63.34 GiB budget"):
-        kway_run.check_peak(run, 67.84)
+        hbm_budget.check_peak(run.report, 67.84)
 
 
 def test_kway_run_rejects_what_it_cannot_build():
