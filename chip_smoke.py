@@ -17,14 +17,26 @@ Phases (each failure raises, and the script exits non-zero):
      special limbs (ModDown's inverse NTT); print how many clusters (planes)
      of K2 the card holds at once;
   5. drive the staged path: Context(ring 2^17, depth from the depth meter)
-     -> Keys -> Evaluator -> StagedDirectSort at N=128, a warm-up sort then a
-     timed one, decrypt, and require max error < 0.01 against np.sort and a
-     K1 launch count > 0 for the timed sort; print its roofline, phase by
-     phase: the share of the speed of light on `roofline.H100` of one sort's
-     op tallies (`phase_stats`) and the unit that bounds it;
+     -> Keys -> Evaluator -> StagedDirectSort at N=128, eagerly
+     (`graphs=False`) and on CUDA graphs (the default: each stage one
+     captured graph, `parallel/whole_graph.py`), from the same ciphertext and
+     keys: each a warm-up sort (on graphs: eager runs and captures) then a
+     timed one, decrypt, and require max error < 0.01 against np.sort, K1
+     launch counts > 0 (on graphs, the replays' tallies) and equal for both,
+     and output planes equal; print each sort's seconds, the captures'
+     seconds, the graphs, the peaks, and the roofline of the sort on graphs,
+     phase by phase: the share of the speed of light on `roofline.H100` of
+     one sort's op tallies (`phase_stats`) and the unit that bounds it;
   6. drive the per-op path the same way on a butterfly context:
      DirectSort(ev, 128).sort over the full key set, and require K2
      launches > 0 and K1 launches == 0 for the timed sort.
+ 14. (run after phase 7, on phase 6's butterfly context) ScanDirectSort, each
+     sort phase a few CUDA graphs with the per-batch body replayed: N=128 at
+     ring 2^17 (one batch) and N=64 at ring 2^12 (two batches, so the body is
+     replayed with its carry), each on its scan key set, eagerly and on
+     graphs from the same ciphertext: output planes equal, max error < 0.01,
+     K2 launches > 0 and K1 launches == 0 in the sort of replays, and equal
+     to the eager sort's;
   7. serve on files (the slice's main path): a client writes the flagship
      butterfly context, the per-op rotation key set and an encrypted input
      into a fresh temporary directory; the secret-free server runs through
@@ -50,14 +62,14 @@ Phases (each failure raises, and the script exits non-zero):
  12. the staged N>256 regimes at the reference's size, N=512 over two
      256-wide tiles (`utils.large_sort.staged_hybrid`, `staged_mehp24`):
      the staged hybrid DirectSort (depth 48) and the staged MEHP24 triangle
-     (depth 46), each max error < 0.01;
+     (depth 46), on CUDA graphs, each max error < 0.01;
  13. the multi-device sorts on a one-rank NCCL world (`file://` store in a
      temporary directory): ShardedDirectSort at N=1024 (depth metered on the
      sharded class, 20 rotation and 16 batch-offset keys) after a warm-up,
      a limb-parallel mult + rescale + rotate on a (1 x 1) mesh bit-equal to
      the plain evaluator, and ShardedMehp24 at N=512 over two 256 x 256
      parts on phase 12's MEHP24 chain; each sort max error < 0.01.
-Phases 7-13 run butterfly contexts: each must launch K2 and never K1, with
+Phases 7-14 run butterfly contexts: each must launch K2 and never K1, with
 the counts set to 0 just before and read just after.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
@@ -148,18 +160,21 @@ def _ntt_bound(planes: int, limbs: int, n: int):
     return (cost.sol_seconds(H100) * 1e3, by), _ops_ms(cost.int_ops)
 
 
-def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi, report):
-    """A warm-up sort, then a timed one, both through the entry point `sort`;
-    every kernel's count is set to 0 just before the timed sort and read just
-    after, and the error and the peak memory (held to `report`'s budget) are
-    that sort's.  A third sort, uncounted, runs the entry point's two phases
-    by hand for their seconds.  Returns (counts, seconds, (constructRank
-    seconds, rotationIndexCheck seconds))."""
-    ct = keys.encrypt(vals)
+def _run_sort(label, keys, ct, vals, sort, phase1, phase2, counters, smi, report):
+    """A warm-up sort of `ct`, then a timed one, both through the entry point
+    `sort`; every kernel's count is set to 0 just before the timed sort and
+    read just after, and the error is that sort's; the peak memory is taken
+    over both (held to `report`'s budget).  A third sort, uncounted, runs the
+    entry point's two phases by hand for their seconds.  Returns (counts,
+    seconds, (constructRank seconds, rotationIndexCheck seconds), output,
+    (warm-up seconds, warm-up peak GiB, timed peak GiB))."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     sort(ct)
     _sync()
-    print(f"# {label}: warm-up sort {time.time() - t0:.2f}s")
+    warm_s = time.time() - t0
+    warm_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"# {label}: warm-up sort {warm_s:.2f}s, peak {warm_peak:.2f} GiB")
     for mod in counters:
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -174,7 +189,7 @@ def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi, report):
     print(f"# {label} N={N}: sort {total:.3f}s; output level {out.level}, "
           f"{out.num_limbs} limbs")
     print(f"# {label}: max sort error {err:.3e} ({smi})")
-    _check_memory(label, report, peak, smi)
+    _check_memory(label, report, max(peak, warm_peak), smi)
     if not np.all(np.isfinite(got)) or got.shape != (N,):
         raise AssertionError(f"{label}: sort output is not N finite values")
     if not err < 0.01:
@@ -190,7 +205,7 @@ def _run_sort(label, keys, vals, sort, phase1, phase2, counters, smi, report):
         raise AssertionError(f"{label}: the two phases by hand differ from the entry point")
     print(f"# {label}, a further sort by phase: constructRank {t1 - t0:.3f}s, "
           f"rotationIndexCheck {t2 - t1:.3f}s, total {t2 - t0:.3f}s")
-    return counts, total, (t1 - t0, t2 - t1)
+    return counts, total, (t1 - t0, t2 - t1), out, (warm_s, warm_peak, peak)
 
 
 def _check_memory(label, report, peak_gib, smi):
@@ -758,6 +773,74 @@ def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _phase14_scan(ctx2, counters, smi):
+    """ScanDirectSort eagerly and on graphs: N=128 at ring 2^17 on the per-op
+    path's butterfly context (one batch), and N=64 at ring 2^12 (two
+    batches: the body is replayed with its carry), each on its own keys.  The sort on graphs
+    runs a warm-up (eager runs and captures, filling the plaintext memo),
+    then the eager sort and a sort of replays run, each counted, so both
+    find the memo warm; returns the replays' K2 launches, summed over both
+    rings."""
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig
+    from fhe_sorting_tpu_torch.parallel.direct_scan import ScanDirectSort, scan_rotation_indices
+    from fhe_sorting_tpu_torch.utils import hbm_budget
+    from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
+    from fhe_sorting_tpu_torch.utils.params_registry import direct_sort_sign_cfg
+
+    k2 = 0
+    for n, ring in ((N, RING), (64, 1 << 12)):
+        cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(n)))
+        if ring == RING:
+            ctx = ctx2
+        else:
+            depth = measure_direct_sort_depth(n, ring, cfg)["mult_depth"]
+            ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, scale_bits=56, comp=2,
+                                     base_limbs=4, ntt_impl="butterfly"))
+        kset = Keys.generate(ctx, seed=0)
+        kset.gen_rotation_keys(sorted(scan_rotation_indices(n, ring)))
+        report = hbm_budget.check_phase(ctx, len(kset.rot), 4,
+                                        work_cts=hbm_budget.WORK_CTS["direct_scan_graphs"],
+                                        label=f"scan N={n}")
+        ev = Evaluator(ctx, kset)
+        held = torch.cuda.memory_allocated() / 2**30
+        x = np.random.default_rng(8).permutation(n) / n + 0.5 / n
+        ct = kset.encrypt(x)
+        eager = ScanDirectSort(ev, n, cfg, graphs=False)
+        srt = ScanDirectSort(ev, n, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srt(ct)
+        _sync()
+        warm_s = time.time() - t0
+        warm_peak = torch.cuda.max_memory_allocated() / 2**30
+        out_e, eager_s, counts_e = _counted(counters, lambda: eager(ct))
+        out, secs, counts = _counted(counters, lambda: srt(ct))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = kset.decrypt(out, n)
+        err = float(np.abs(got - np.sort(x)).max())
+        graphs = srt.graph_stats()
+        print(f"# scan N={n}, ring 2^{ring.bit_length() - 1}: P={srt.P}, {srt.nb} batch(es); eager "
+              f"{eager_s:.3f}s, warm-up on graphs {warm_s:.3f}s (captures "
+              f"{sum(g[1] for g in graphs.values()):.2f}s), replayed {secs:.3f}s; dispatches "
+              f"{ {k: g[0] for k, g in graphs.items()} }; max sort error {err:.3e}; peak "
+              f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB replaying, of which {held:.2f} "
+              f"GiB were held before the sort ({smi})")
+        _check_memory(f"scan N={n}", report, max(warm_peak, peak), smi)
+        if not torch.equal(out.data, out_e.data):
+            raise AssertionError(f"scan N={n}: the sort on graphs differs from the eager sort")
+        if counts != counts_e:
+            raise AssertionError(f"scan N={n}: launches on graphs {counts} != eager {counts_e}")
+        if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
+            raise AssertionError(f"scan N={n}: sort error {err} >= 0.01")
+        k2 += _require_k2_only(f"scan N={n} on graphs", counts)
+        del eager, srt, ev, ct, out, out_e, kset, ctx
+        _release()
+    return k2
+
+
 def _roofline_line(ctx, srt, phase_s, smi):
     """The staged sort's share of the speed of light on this card, phase by
     phase: `roofline.accumulate_sol` over one sort's `phase_stats()` (the
@@ -922,27 +1005,43 @@ def main() -> int:
 
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
 
-    # -- phase 5: the staged path (four-step context, K1) ----------------------
+    # -- phase 5: the staged path (four-step context, K1), eager and on graphs --
     t0 = time.time()
     scan = sorted(scan_rotation_indices(N, RING))
-    report = hbm_budget.check_phase(ctx, len(scan), 4, work_cts=hbm_budget.WORK_CTS["direct_staged"],
-                                    label=f"staged N={N}")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(scan)
-    srt = StagedDirectSort(Evaluator(ctx, keys), N, cfg)
+    ev = Evaluator(ctx, keys)
     _sync()
     print(f"# staged: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s")
-    (k1_launches, k2_stray), staged_s, phase_s = _run_sort(
-        "staged", keys, vals, srt, srt.construct_rank, srt.index_check,
-        (fs_ntt, bf_ntt), smi, report)
-    print(f"# staged: K1 launches {k1_launches}, K2 launches {k2_stray}; "
-          f"stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
-    if k1_launches <= 0 or k2_stray != 0:
-        raise AssertionError("the staged path must launch K1 and not K2")
+    ct = keys.encrypt(vals)
+    staged = {}
+    for label, graphs in (("staged eager", False), ("staged on graphs", None)):
+        report = hbm_budget.check_phase(
+            ctx, len(scan), 4, work_cts=hbm_budget.work_cts("direct_staged", graphs is None),
+            label=f"{label} N={N}")
+        srt = StagedDirectSort(ev, N, cfg, graphs=graphs)
+        staged[label] = (srt, *_run_sort(label, keys, ct, vals, srt, srt.construct_rank,
+                                         srt.index_check, (fs_ntt, bf_ntt), smi, report))
+        k1_count, k2_stray = staged[label][1]
+        print(f"# {label}: K1 launches {k1_count}, K2 launches {k2_stray}; stage calls: "
+              f"{ {name: st.calls for name, st in srt.stages.items()} }")
+        if k1_count <= 0 or k2_stray != 0:
+            raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
+        del srt
+        _release()
+    (_, (k1_eager, _), eager_s, _, out_e, _), (srt, (k1_launches, _), staged_s, phase_s, out_g,
+                                               (warm_s, warm_peak, peak)) = staged.values()
+    if not torch.equal(out_e.data, out_g.data):
+        raise AssertionError("staged: the sort on graphs differs from the eager sort")
+    if k1_launches != k1_eager:
+        raise AssertionError(f"staged: K1 launches on graphs {k1_launches} != eager {k1_eager}")
+    print(f"# staged N={N} on K1: eager {eager_s:.3f}s, on graphs {staged_s:.3f}s (output planes "
+          f"equal); {srt.stages.graph_count()} graphs, captured in {srt.stages.capture_seconds():.2f}s "
+          f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {k1_launches} (replay tallies); "
+          f"peak {warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB replaying ({smi})")
     _roofline_line(ctx, srt, phase_s, smi)
-    del srt, keys, ctx, fs, k1
-    gc.collect()
-    torch.cuda.empty_cache()
+    del staged, srt, ev, keys, ctx, fs, k1, ct, out_e, out_g
+    _release()
 
     # -- phase 6: the per-op path (butterfly context, K2) ----------------------
     t0 = time.time()
@@ -956,8 +1055,8 @@ def main() -> int:
     _sync()
     print(f"# per-op: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    (k1_stray, k2_launches), per_op_s, _ = _run_sort(
-        "per-op", keys, vals,
+    (k1_stray, k2_launches), per_op_s, *_ = _run_sort(
+        "per-op", keys, keys.encrypt(vals), vals,
         lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
         lambda ct: srt.construct_rank(ct, SignFunc.CompositeSign, cfg),
         srt.rotation_index_check_n, (fs_ntt, bf_ntt), smi, report)
@@ -965,16 +1064,19 @@ def main() -> int:
           f"over the three sorts: {srt.rot.stats}")
     if k2_launches <= 0 or k1_stray != 0:
         raise AssertionError("the per-op butterfly path must launch K2 and not K1")
-    print(f"# sorts side by side: staged on K1 {staged_s:.3f}s, per-op on K2 {per_op_s:.3f}s "
-          f"({smi})")
+    print(f"# sorts side by side: staged on K1 {staged_s:.3f}s on graphs, {eager_s:.3f}s "
+          f"eager; per-op on K2 {per_op_s:.3f}s ({smi})")
     del srt, ev
 
-    # -- phases 7-13: the serving path, what stands behind it, the k-way network,
-    # the staged N>256 regimes and the sharded sorts ------------------------------
+    # -- phases 7-14: the serving path, the scan sorts, what stands behind the
+    # server, the k-way network, the staged N>256 regimes, the sharded sorts ---
     counters = (fs_ntt, bf_ntt)
     by_phase = {"per-op sort": k2_launches}
     by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
-    del keys, ctx2, bf, k2
+    del keys
+    _release()
+    by_phase["scan sorts"] = _phase14_scan(ctx2, counters, smi)
+    del ctx2, bf, k2
     _release()
     for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
                         ("mehp24", _phase10_mehp24), ("characterizer", _characterizer_line),

@@ -15,7 +15,12 @@ the same parameters.  Differences:
   * `ntt_impl="auto"` picks the four-step NTT with the CUDA kernel K1 when
     the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
     butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
-    CPU).
+    CPU);
+  * `frozen` (set by `Evaluator.frozen`, around a CUDA graph capture) makes
+    every upload and every fill of a device cache raise `FrozenError`: a
+    capture records kernels without running them, so a table made inside
+    it would hold nothing until a replay, and a host-to-device copy from
+    pageable memory is not allowed there at all.
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ from . import primes as primes_mod
 from .modmath import PrimeConsts
 
 getcontext().prec = 120
+
+
+class FrozenError(RuntimeError):
+    """An upload, a cache fill, a memo miss or eviction, or a key
+    generation inside a frozen section (`Evaluator.frozen`)."""
 
 
 @dataclass(frozen=True)
@@ -172,6 +182,7 @@ class Context:
         none); pass "cpu" to run on the CPU."""
         self.params = params
         self.device = nttm.resolve_device(device)
+        self.frozen = False
         self.q_primes, self._scales_dec = _choose_prime_chain(params)
         self.sp_primes = list(primes_mod.ntt_primes(
             params.ring_n, params.special_bits,
@@ -212,8 +223,15 @@ class Context:
         self._exp_pos[self._root_exp] = np.arange(n)
         self._galois_perm_cache = {}
 
+    def thawed(self, what: str) -> None:
+        """Raise `FrozenError` naming `what` inside a frozen section."""
+        if self.frozen:
+            raise FrozenError(f"{what} inside a frozen section (a CUDA graph capture): "
+                              f"run the call once outside it first")
+
     def tensor(self, x) -> torch.Tensor:
         """An int64 tensor on the context device from integers or numpy."""
+        self.thawed("an upload to the device (Context.tensor)")
         return torch.from_numpy(np.asarray(x).astype(np.int64)).to(self.device)
 
     # -- limb index sets ---------------------------------------------------
@@ -222,6 +240,7 @@ class Context:
         """Global limb indices lo..hi-1 as a cached device tensor."""
         key = (lo, hi)
         if key not in self._limb_cache:
+            self.thawed(f"a new limb index set {key}")
             self._limb_cache[key] = torch.arange(lo, hi, dtype=torch.int64,
                                                  device=self.device)
         return self._limb_cache[key]
@@ -236,6 +255,7 @@ class Context:
         """Active Q limbs at `level` followed by the special primes."""
         key = ("target", level)
         if key not in self._limb_cache:
+            self.thawed(f"a new limb index set {key}")
             self._limb_cache[key] = torch.cat(
                 [self.active_limbs(level), self.special_limbs()])
         return self._limb_cache[key]

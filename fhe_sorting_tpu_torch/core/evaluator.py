@@ -13,6 +13,12 @@ product with the key, then ModDown (division by P).  Every NTT goes through
 `core/ntt.py`, which on a GPU launches the CUDA kernel of the context's
 tables: K1 (four-step) or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
 sliced or copied per op.
+
+Everything an op uploads is memoised on the device: encoded plaintexts (an
+LRU bounded by bytes), scalar residues by (integer, limbs), and `combo`'s
+coefficient and constant residues by content.  So once a call has run, the
+same call uploads nothing, and `frozen()` can hold it to that while a CUDA
+graph captures it (`parallel/whole_graph.py`).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import hashlib
 import time
 from collections import Counter, OrderedDict
+from contextlib import contextmanager
 from dataclasses import replace
 
 import numpy as np
@@ -27,7 +34,7 @@ import torch
 
 from . import ntt as nttm
 from .cipher import Ciphertext, Plaintext
-from .context import Context
+from .context import Context, FrozenError
 from .encoding import coeffs_to_residues, encode_coeffs
 from .keys import KeySwitchKey, Keys
 from .modmath import add_mod, mulmod, neg_mod, sub_mod
@@ -57,6 +64,35 @@ class Evaluator:
         # encoded-plaintext memo (LRU), bounded by device bytes
         self._pt_cache: OrderedDict = OrderedDict()
         self._pt_cache_used = 0
+        # unbounded memos of small uploads: scalar residues [L, 1] by
+        # (integer, limbs), combo's residues by content
+        self._scalar_memo: dict = {}
+        self._combo_memo: dict = {}
+        # inside `frozen()`: every memoised tensor and key the ops read
+        self._reads: list | None = None
+
+    # -- frozen sections ---------------------------------------------------
+
+    @contextmanager
+    def frozen(self):
+        """A section in which nothing is uploaded, made or freed: a memo miss
+        or eviction, a `Context.tensor` upload, a new device cache entry or a
+        key generation raises `FrozenError`, naming the operation.  Yields
+        the list of every memoised tensor and key-switch key the section's
+        ops read (a CUDA graph keeps them alive for its replays)."""
+        if self._reads is not None:
+            raise FrozenError("frozen sections do not nest")
+        self._reads, self.ctx.frozen = [], True
+        try:
+            yield self._reads
+        finally:
+            self._reads, self.ctx.frozen = None, False
+
+    def _read(self, obj):
+        """Note a memoised object an op reads (inside `frozen()` only)."""
+        if self._reads is not None:
+            self._reads.append(obj)
+        return obj
 
     # -- helpers -----------------------------------------------------------
 
@@ -69,7 +105,11 @@ class Evaluator:
     def _scalar_limbs(self, c: float, level: int, scale: float) -> torch.Tensor:
         m = int(np.rint(np.float64(c) * scale))
         Ll = self.ctx.limbs_at(level)
-        return self.ctx.tensor([[m % p] for p in self.ctx.q_primes[:Ll]])
+        hit = self._scalar_memo.get((m, Ll))
+        if hit is None:
+            hit = self._scalar_memo[(m, Ll)] = self.ctx.tensor(
+                [[m % p] for p in self.ctx.q_primes[:Ll]])
+        return self._read(hit)
 
     # The limb-local ops (add, sub, negate, the products and the tensor
     # product, the automorphism's permutation) take their primes from
@@ -100,7 +140,8 @@ class Evaluator:
         if hit is not None:
             self._pt_cache.move_to_end(key)
             self.pt_stats["hits"] += 1
-            return hit
+            return self._read(hit)
+        self.ctx.thawed(f"a plaintext memo miss (level {level}, {s} slots)")
         t0 = time.perf_counter()
         coeffs = encode_coeffs(values, ctx.params.ring_n, ctx.scale(level, sdeg), slots=s)
         if coeffs.dtype == np.int64:
@@ -115,10 +156,16 @@ class Evaluator:
         nbytes = pt.data.numel() * pt.data.element_size()
         self._pt_cache[key] = pt
         self._pt_cache_used += nbytes
+        self._evict()
+        return pt
+
+    def _evict(self):
+        """Drop the least recently used plaintexts until the memo fits its
+        bound (the newest always stays)."""
         while self._pt_cache_used > self.pt_cache_bytes and len(self._pt_cache) > 1:
+            self.ctx.thawed("a plaintext memo eviction")
             _, old = self._pt_cache.popitem(last=False)
             self._pt_cache_used -= old.data.numel() * old.data.element_size()
-        return pt
 
     # -- add / sub / neg ---------------------------------------------------
 
@@ -293,7 +340,7 @@ class Evaluator:
         b0, b1 = b.data[0], b.data[1]
         d0 = mulmod(a0, b0, p)
         d1 = add_mod(mulmod(a0, b1, p), mulmod(a1, b0, p), p)
-        e0, e1 = self._keyswitch_core(mulmod(a1, b1, p), a.level, self.keys.relin)
+        e0, e1 = self._keyswitch_core(mulmod(a1, b1, p), a.level, self._read(self.keys.relin))
         return replace(a, data=torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]), sdeg=2)
 
     def square(self, a: Ciphertext) -> Ciphertext:
@@ -305,7 +352,7 @@ class Evaluator:
         d0 = mulmod(a0, a0, p)
         cross = mulmod(a0, a1, p)
         d1 = add_mod(cross, cross, p)
-        e0, e1 = self._keyswitch_core(mulmod(a1, a1, p), a.level, self.keys.relin)
+        e0, e1 = self._keyswitch_core(mulmod(a1, a1, p), a.level, self._read(self.keys.relin))
         return replace(a, data=torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]), sdeg=2)
 
     # -- key switching -----------------------------------------------------
@@ -359,7 +406,7 @@ class Evaluator:
 
     def _rot_key(self, g: int) -> KeySwitchKey:
         assert g in self.keys.rot, f"missing rotation key for galois {g}"
-        return self.keys.rot[g]
+        return self._read(self.keys.rot[g])
 
     def _automorphism(self, a: Ciphertext, g: int, ksk: KeySwitchKey | None = None) -> Ciphertext:
         ksk = self._rot_key(g) if ksk is None else ksk
@@ -430,19 +477,10 @@ class Evaluator:
         consts = np.asarray(consts, dtype=np.float64)
         R, B = rows.shape
         assert B == len(cts) and consts.shape == (R,)
-        ps = np.array(self.ctx.q_primes[:Ll], dtype=np.int64)
-        m = np.rint(rows * self.ctx.scale(lvl, 1)).astype(np.int64)
-        coeff_res = m[None, :, :] % ps[:, None, None]               # [L, R, B]
-        s2 = float(self.ctx.scale_dec(lvl) ** 2)
-        const_res = np.zeros((R, Ll, 1), dtype=np.int64)
-        for r in range(R):
-            if consts[r] != 0.0:
-                mi = int(consts[r] * s2)
-                const_res[r, :, 0] = [mi % int(p) for p in ps]
+        coeff, const = self._combo_residues(rows, consts, lvl)
         self.op_stats[("combo", lvl, B, R)] += 1
         p = self.ctx.p_active(lvl)
         n = aligned[0].data.shape[-1]
-        coeff = self.ctx.tensor(coeff_res)
         # limb chunks bound the stacked operand (and mod_matmul's float64
         # halves of it) to _COMBO_CHUNK_BYTES: at N=1024 the sinc's 64 babies
         # over a whole chain would not fit the device beside them
@@ -455,10 +493,31 @@ class Evaluator:
             outs.append(mod_matmul(coeff[lo:hi], x, p[lo:hi, :, None]))   # [l, R, 2n]
         out = outs[0] if len(outs) == 1 else torch.cat(outs)
         out = out.reshape(Ll, R, 2, n).permute(1, 2, 0, 3)         # [R, 2, L, n]
-        d0 = add_mod(out[:, 0], self.ctx.tensor(const_res), p)
+        d0 = add_mod(out[:, 0], const, p)
         out = torch.stack([d0, out[:, 1]], dim=1)
         slots = aligned[0].slots
         return [Ciphertext(out[r], lvl, 2, slots) for r in range(R)]
+
+    def _combo_residues(self, rows: np.ndarray, consts: np.ndarray, lvl: int):
+        """`combo`'s coefficient residues [L, R, B] and constant residues
+        [R, L, 1] on the device, memoised by content."""
+        key = (lvl, rows.shape, rows.tobytes(), consts.tobytes())
+        hit = self._combo_memo.get(key)
+        if hit is None:
+            Ll = self.ctx.limbs_at(lvl)
+            R = rows.shape[0]
+            ps = np.array(self.ctx.q_primes[:Ll], dtype=np.int64)
+            m = np.rint(rows * self.ctx.scale(lvl, 1)).astype(np.int64)
+            coeff_res = m[None, :, :] % ps[:, None, None]
+            s2 = float(self.ctx.scale_dec(lvl) ** 2)
+            const_res = np.zeros((R, Ll, 1), dtype=np.int64)
+            for r in range(R):
+                if consts[r] != 0.0:
+                    mi = int(consts[r] * s2)
+                    const_res[r, :, 0] = [mi % int(p) for p in ps]
+            hit = self._combo_memo[key] = (self.ctx.tensor(coeff_res),
+                                           self.ctx.tensor(const_res))
+        return self._read(hit)
 
     # -- misc --------------------------------------------------------------
 

@@ -170,6 +170,7 @@ class Keys:
         return KeySwitchKey(kb=kb, ka=a)
 
     def gen_relin_key(self, rng=None):
+        self.ctx.thawed("a key generation")
         s_dev = self._s_dev
         self.relin = self._gen_ksk(mulmod(s_dev, s_dev, self.ctx.pc.p),
                                    rng or np.random.default_rng(1))
@@ -180,6 +181,7 @@ class Keys:
         persistent generator across calls (a fixed seed per call would reuse
         `a` for different galois targets and leak the secret).  An explicit
         `seed` reseeds the stream (tests only)."""
+        self.ctx.thawed("a key generation")
         if seed is not None or getattr(self, "_rot_rng", None) is None:
             self._rot_rng = np.random.default_rng(2 if seed is None else seed)
         for r in steps:
@@ -190,6 +192,7 @@ class Keys:
             self.rot[g] = self._gen_ksk(s_g, self._rot_rng)
 
     def gen_conj_key(self, seed: int = 3):
+        self.ctx.thawed("a key generation")
         g = 2 * self.ctx.params.ring_n - 1
         if g not in self.rot:
             s_g = self._s_dev[:, self.ctx.galois_perm(g)]

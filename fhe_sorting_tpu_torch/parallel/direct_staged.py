@@ -1,7 +1,10 @@
-"""DirectSort as a sequence of named eager stages over the minimal key set.
+"""DirectSort as a sequence of named stages over the minimal key set.
 
 Port of `fhe_sorting_tpu/parallel/direct_staged.py`.  The stages are the
-reference's, each a plain eager call here (no tracing):
+reference's; each is a `WholeGraph` (`parallel/whole_graph.py`), the
+counterpart of the reference's `WholeJit`: on a CUDA context a captured
+CUDA graph, replayed at every later call, and on the CPU (or with
+`graphs=False`) an eager call:
 
   phase 1, per batch:  A  babies + giant-step Horner -> diff = dup - shifted
                        B* one stage per composite-sign iteration
@@ -12,26 +15,24 @@ reference's, each a plain eager call here (no tracing):
                        H  mask-mult + pre-rotations + blind-rotation Horner
            once:       I  batch Horner recombine + fold + SetSlots
 
-`run_stage` counts each stage's calls and the evaluator ops it issued;
-`stage_stats` and `phase_stats` sum them for the roofline
-(`utils/roofline.accumulate_sol`); `verbose` prints per-stage seconds
-(synchronizing the device first).  Key set: `scan_rotation_indices`.
+`stages[name]` counts the stage's calls (`calls`) and holds the evaluator
+ops one call issues (`op_counts`); `stage_stats` and `phase_stats` weight
+them by the calls for the roofline (`utils/roofline.accumulate_sol`);
+`verbose` prints per-stage seconds (synchronizing the device first).  Key
+set: `scan_rotation_indices`.
 """
 
 from __future__ import annotations
 
 import math
-import sys
-import time
 from collections import Counter
-
-import torch
 
 from ..core.cipher import Ciphertext
 from ..models.direct_sort import _default_np, checking_vector_n, index_vector, mask_block
 from ..ops.chebyshev import ChebyshevPS
 from ..ops.sign import F3, G3, SignConfig, eval_odd_poly7
 from ..utils.sinc_coeffs import doubled_sinc_coefficients
+from .whole_graph import StageTable
 
 
 def scan_rotation_indices(N: int, ring_n: int) -> set:
@@ -48,35 +49,12 @@ def scan_rotation_indices(N: int, ring_n: int) -> set:
     return idx
 
 
-class StageStats:
-    """Calls of one named stage and the evaluator ops they issued."""
-
-    def __init__(self):
-        self.calls = 0
-        self.op_counts: Counter = Counter()
-
-
-def run_stage(ev, stages: dict, verbose: bool, name: str, fn, cts):
-    """`fn(cts)` as the stage `name`: counts its call and the evaluator ops it
-    issued in `stages[name]`; `verbose` prints its seconds (synchronizing the
-    device first)."""
-    st = stages.setdefault(name, StageStats())
-    before = ev.op_stats.copy()
-    t0 = time.time()
-    out = fn(cts)
-    st.calls += 1
-    st.op_counts += ev.op_stats - before
-    if verbose:
-        if ev.ctx.device.type == "cuda":
-            torch.cuda.synchronize(ev.ctx.device)
-        print(f"#   stage {name}: {time.time() - t0:.2f}s", file=sys.stderr)
-    return out
-
-
 class StagedDirectSort:
-    """DirectSort over the minimal key set, one eager call per stage."""
+    """DirectSort over the minimal key set, one graph (or eager call) per
+    stage.  `graphs=None` runs on graphs on a CUDA context and eagerly on the
+    CPU; `graphs=False` runs eagerly on the card too."""
 
-    def __init__(self, ev, N: int, sign_cfg: SignConfig):
+    def __init__(self, ev, N: int, sign_cfg: SignConfig, graphs: bool | None = None):
         assert sign_cfg.compos.n == 3, "staged path implements CompositeSign<3>"
         self.ev = ev
         self.N = N
@@ -92,26 +70,25 @@ class StagedDirectSort:
         stretch = 1.0 + 4.0 / N
         self.alpha = 1.0 / (2.0 * N * stretch)
         self.coeffs = doubled_sinc_coefficients(N, stretch=stretch)
-        self.stages: dict = {}
+        self.stages = StageTable(ev, graphs)
         self.verbose = False
 
     # -- stage infrastructure ---------------------------------------------
 
     def _run(self, name: str, fn, cts):
-        return run_stage(self.ev, self.stages, self.verbose, name, fn, cts)
+        return self.stages.run(name, fn, cts, self.verbose)
 
     def stage_stats(self) -> Counter:
-        """Evaluator ops of every stage call so far, summed (each stage's
-        `op_counts` already holds all its calls: the reference's per-dispatch
-        tally times its calls)."""
-        return sum((st.op_counts for st in self.stages.values()), Counter())
+        """Evaluator ops of every stage call so far: each stage's
+        per-dispatch tally times its calls, as the reference sums them."""
+        return sum((st.tally() for st in self.stages.values()), Counter())
 
     def phase_stats(self) -> dict:
         """`stage_stats` split into constructRank (stages A-D) and
         rotationIndexCheck (E-I), for the per-phase roofline."""
         out = {"constructRank": Counter(), "rotationIndexCheck": Counter()}
         for name, st in self.stages.items():
-            out["constructRank" if name[0] in "ABCD" else "rotationIndexCheck"] += st.op_counts
+            out["constructRank" if name[0] in "ABCD" else "rotationIndexCheck"] += st.tally()
         return out
 
     # -- phase 1: constructRank -------------------------------------------

@@ -8,11 +8,14 @@ N/256), indicates each row's target with a sign-based indicator
 elements through the sumColumnsToTarget / transposeColumnTarget binary-path
 folds (sort_algo.h:824-891).
 
-construct_rank is `StagedDirectSort`'s; the placement runs as named eager
-stages through the same runner and stage table: the rank prep and
-rotations, per (b, k) the indicator's sign iterations over both branches
-and the combine, per b the binary-path folds in segments, and the final
-sum.
+construct_rank is `StagedDirectSort`'s; the placement runs as named
+stages (graphs on a CUDA context unless `graphs=False`) through the same
+runner and stage table: the rank prep and rotations, per (b, k) the
+indicator's sign iterations over both branches and the combine, per b the
+binary-path folds in segments, and the final sum.  A stage whose closure
+bakes in a host value (a batch's offset, mask or ladder) is named per batch.
+The two key sets are swapped between the phases, so a second sort finds
+new keys and captures the stages that read them anew (`WholeGraph`).
 The placement's key basis is `hybrid_staged_keys`: a caller that keys
 constructRank with `scan_rotation_indices` drops those keys and generates
 these between the two phases, so the device holds one set at a time.
@@ -56,7 +59,7 @@ class StagedHybridSort:
     """sort_hybrid (sort_algo.h:1050-1064) with the true 256-wide tiling."""
 
     def __init__(self, ev, N: int, sign_cfg: SignConfig, max_array: int = 256,
-                 indicator_dg: int | None = None):
+                 indicator_dg: int | None = None, graphs: bool | None = None):
         self.ev = ev
         self.N = N
         self.max_array = max_array
@@ -65,7 +68,7 @@ class StagedHybridSort:
         self.num_batch = max(1, N // max_array)
         self.size = min(N, max_array)
         assert self.num_slots <= ring // 2
-        self.base = StagedDirectSort(ev, N, sign_cfg)
+        self.base = StagedDirectSort(ev, N, sign_cfg, graphs)
         self.rot = RotationComposer(ev, sorted(hybrid_staged_keys(N, ring, max_array)))
         self.srt = DirectSort(ev, N, rot=self.rot)
         # sort_algo.h:968-981: dg 4 below N=512, else 5

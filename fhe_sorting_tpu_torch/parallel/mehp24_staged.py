@@ -13,7 +13,10 @@ as stages over a reduced rotation-key set:
     RotationComposer;
   * stages: split -> replicate (per part) -> pairwise signAdv compare ->
     rank fold -> per-(j, kk) index offset and indicator -> placement fold ->
-    combine, each counted as `StagedDirectSort` counts its own.
+    combine, each a `WholeGraph` as in `StagedDirectSort` (a CUDA graph on
+    a CUDA context unless `graphs=False`, an eager call on the CPU).  A
+    stage name is one graph, so a stage whose closure bakes in a host value
+    (the index offset of part j) is named per value.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..models.mehp24.utils import combine_ciphertext, split_ciphertext
 from ..ops.compare import Comparison
 from ..ops.rotation import RotationComposer
 from ..ops.sign import sign_adv
-from .direct_staged import run_stage
+from .whole_graph import StageTable
 
 
 def mehp24_staged_keys(sub: int, ring_n: int) -> set:
@@ -45,7 +48,7 @@ class StagedMehp24Multi:
     """k-part MEHP24 triangle sort as named stages."""
 
     def __init__(self, ev, total: int, sub: int, dg_c: int, df_c: int, dg_i: int,
-                 df_i: int):
+                 df_i: int, graphs: bool | None = None):
         self.ev = ev
         self.total = total
         self.sub = sub
@@ -54,11 +57,11 @@ class StagedMehp24Multi:
         rot = RotationComposer(ev, sorted(mehp24_staged_keys(sub, ev.ctx.params.ring_n)))
         self.model = Mehp24Sort(ev, total, sub_length=sub, rot=rot)
         self.rot = rot
-        self.stages: dict = {}
+        self.stages = StageTable(ev, graphs)
         self.verbose = False
 
     def _run(self, name: str, fn, cts):
-        return run_stage(self.ev, self.stages, self.verbose, name, fn, cts)
+        return self.stages.run(name, fn, cts, self.verbose)
 
     def __call__(self, ct: Ciphertext) -> Ciphertext:
         ev, mat = self.ev, self.model.mat

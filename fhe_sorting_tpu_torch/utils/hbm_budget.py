@@ -19,7 +19,12 @@ size is in binary units (GiB, MiB), the capacity too.
 
 Each path reckons its keys and long-lived ciphertexts by count, and what its
 ops hold in flight as `WORK_CTS[path]` top-level ciphertexts, measured on the
-card.  After it runs, `check_peak` holds the measured peak to the budget.
+card.  A staged path on CUDA graphs (`parallel/whole_graph.py`) has terms of
+its own (`work_cts(path, graphs=True)`): its graphs' fixed input buffers,
+their outputs and their shared memory pool stay allocated beside the keys,
+and its peak is taken over the first sort, which runs each stage eagerly and
+then captures it.  After it runs, `check_peak` holds the measured peak to
+the budget.
 """
 
 from __future__ import annotations
@@ -63,7 +68,29 @@ WORK_CTS = {
     # 48 steps of `rotation_indices_mehp24(256)`, +-2^15 one galois element)
     # + relin = 48 keys x 0.9375 + 12 cts x 0.1875 GiB
     "mehp24_sharded": 19,
+    # -- on CUDA graphs (`parallel/whole_graph.py`): the peak over a warm-up
+    # sort (each stage run eagerly, then captured) and a sort of replays, from
+    # each path's first runs on an H100 80GB HBM3 at 700 W.  The warm-up
+    # holds the most: a stage's eager working set, then its capture's in the
+    # graphs' pool, beside every earlier graph's buffers and outputs.
+    # DirectSort N=1024 staged, 29.82 GiB in the warm-up (14.85 replaying):
+    # 10 keys x 0.674 + 4 cts x 0.168 GiB (`large_sort --n 1024 --path staged`)
+    "direct_staged_graphs": 134,
+    # staged hybrid N=512, 20.12 GiB: 11 keys x 1.172 + 8 cts x 0.195 GiB
+    # (`chip_smoke.py` phase 12)
+    "hybrid_staged_graphs": 30,
+    # staged MEHP24 N=512, 25.61 GiB: 17 keys x 0.9375 + 12 cts x 0.1875 GiB
+    # (phase 12)
+    "mehp24_staged_graphs": 40,
+    # ScanDirectSort N=128 at ring 2^17, 15.56 GiB in the warm-up: 10 keys x
+    # 0.533 + 4 cts x 0.133 GiB (phase 14's sort, on its own keys)
+    "direct_scan_graphs": 74,
 }
+
+
+def work_cts(path: str, graphs: bool) -> int:
+    """`WORK_CTS` of a path, on CUDA graphs or eager."""
+    return WORK_CTS[f"{path}_graphs" if graphs else path]
 
 
 def device_capacity_gb(ctx) -> float:

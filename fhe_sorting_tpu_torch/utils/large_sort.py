@@ -1,7 +1,7 @@
 """One sort at a large N on the card, with its memory reckoned first.
 
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path per_op
-    python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path staged
+    python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path staged [--eager]
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --path hybrid
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --algo mehp24_staged
 
@@ -12,7 +12,9 @@ rotation key just in time on the device, at most 8 of them resident;
 (ring 2^17, scale 2^56 with comp 2, the depth from the depth meter).
 `hybrid` is the staged hybrid sort over 256-wide tiles (`staged_hybrid`),
 and `--algo mehp24_staged` the MEHP24 triangle over sub-length 256
-(`staged_mehp24`).  All run on the butterfly NTT.  Prints the card, the
+(`staged_mehp24`).  All run on the butterfly NTT; the staged ones run on
+CUDA graphs (`parallel/whole_graph.py`), or eagerly with `--eager`, and
+print the graphs' capture seconds.  Prints the card, the
 reckoned and the measured peak memory, seconds of a warm-up sort and of a
 timed one, and the max error against np.sort; exits non-zero on an error
 >= 0.01, and raises where the peak exceeds the reckoning's budget.
@@ -92,7 +94,7 @@ def mehp24_plan(total: int):
                                 TILE * TILE) + 1
 
 
-def staged_hybrid(N: int):
+def staged_hybrid(N: int, graphs: bool | None = None):
     """(ctx, keys, sort, info) of the staged hybrid DirectSort of N values
     over 256-wide tiles at ring 2^17 (`hybrid_plan`), dnum 5 (logQP 3396.8
     at depth 48 and N=512).  `sort(ct)` holds constructRank's scan keys, ranks,
@@ -110,13 +112,13 @@ def staged_hybrid(N: int):
     ctx, logqp = _context(depth, 5)
     scan, place = scan_rotation_indices(N, RING), hybrid_staged_keys(N, RING, TILE)
     nb = max(1, N // TILE)
-    work = hbm_budget.WORK_CTS["hybrid_staged"]
+    work = hbm_budget.work_cts("hybrid_staged", graphs is not False)
     reports = [hbm_budget.check_phase(ctx, len(scan), 4, work_cts=work, label="constructRank"),
                # 2*nb rotated inputs + nb accumulators + rank + input
                hbm_budget.check_phase(ctx, len(place), 3 * nb + 2, work_cts=work, label="place")]
     keys = Keys.generate(ctx, seed=0)
-    srt = StagedHybridSort(Evaluator(ctx, keys), N, cfg, max_array=TILE)
-    info = dict(depth=depth, logqp=logqp, reports=reports, slots=N, phase_s={},
+    srt = StagedHybridSort(Evaluator(ctx, keys), N, cfg, max_array=TILE, graphs=graphs)
+    info = dict(depth=depth, logqp=logqp, reports=reports, slots=N, phase_s={}, stages=srt.stages,
                 what=f"staged hybrid DirectSort N={N} over {TILE}-wide tiles "
                      f"(indicator dg {srt.dgi}, {len(scan)} scan keys, then {len(place)} "
                      f"placement keys)")
@@ -128,10 +130,13 @@ def staged_hybrid(N: int):
 
     def sort(ct):
         t = [time.time()]
+        # a graph holds the keys it read: drop the graphs before their keys go
+        srt.stages.release()
         _hold_rotation_keys(keys, scan)
         stamp(t)
         rank = srt.base.construct_rank(ct)
         stamp(t)
+        srt.stages.release()
         _hold_rotation_keys(keys, place)
         stamp(t)
         out = srt.place(rank, ct)
@@ -143,7 +148,7 @@ def staged_hybrid(N: int):
     return ctx, keys, sort, info
 
 
-def staged_mehp24(total: int):
+def staged_mehp24(total: int, graphs: bool | None = None):
     """(ctx, keys, sort, info) of the MEHP24 triangle sort of `total` values
     over 256x256 tiles at ring 2^17 (`mehp24_plan`), dnum 4.  `sort(ct)`
     takes the values in the first `total` of 256 * 256 slots."""
@@ -159,13 +164,14 @@ def staged_mehp24(total: int):
     k = total // TILE
     # the parts, their two replications, the Cv/Ch accumulators and the ranks
     report = hbm_budget.check_phase(ctx, len(steps), 6 * k,
-                                    work_cts=hbm_budget.WORK_CTS["mehp24_staged"],
+                                    work_cts=hbm_budget.work_cts("mehp24_staged",
+                                                                 graphs is not False),
                                     label="MEHP24 staged")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
-    srt = StagedMehp24Multi(Evaluator(ctx, keys), total, TILE, *sign)
+    srt = StagedMehp24Multi(Evaluator(ctx, keys), total, TILE, *sign, graphs=graphs)
     info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
-                what=f"staged MEHP24 N={total} over {k} tiles of {TILE}x{TILE} "
+                stages=srt.stages, what=f"staged MEHP24 N={total} over {k} tiles of {TILE}x{TILE} "
                      f"(dg_c {sign[0]}, df_c {sign[1]}, dg_i {sign[2]}, df_i {sign[3]}; "
                      f"{len(steps)} keys)")
     return ctx, keys, srt, info
@@ -246,6 +252,8 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--path", choices=("per_op", "staged", "hybrid"), default="per_op")
     ap.add_argument("--algo", choices=("direct", "mehp24_staged"), default="direct")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the staged sorts eagerly instead of on CUDA graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("large_sort: no CUDA device")
@@ -258,19 +266,21 @@ def main() -> int:
     N, ring = args.n, RING
     t0 = time.time()
     rot, info = None, None
+    graphs = False if args.eager else None
     if args.algo == "mehp24_staged":
-        ctx, keys, sort, info = staged_mehp24(N)
+        ctx, keys, sort, info = staged_mehp24(N, graphs)
     elif args.path == "hybrid":
-        ctx, keys, sort, info = staged_hybrid(N)
+        ctx, keys, sort, info = staged_hybrid(N, graphs)
     else:
         ctx, cfg, depth = sort_context(N, args.path, "butterfly")
         resident = len(rotation_steps(N, args.path, LAZY_KEY_BUDGET)) or LAZY_KEY_BUDGET
-        report = hbm_budget.check_phase(ctx, resident, 8,
-                                        work_cts=hbm_budget.WORK_CTS[f"direct_{args.path}"],
+        work = hbm_budget.work_cts(f"direct_{args.path}",
+                                   args.path == "staged" and not args.eager)
+        report = hbm_budget.check_phase(ctx, resident, 8, work_cts=work,
                                         label=f"{args.path} DirectSort N={N}")
         print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, Lq={ctx.num_q}, "
               f"K={ctx.num_sp}; reckoned before allocating: {report}")
-        keys, sort, rot = sorter(ctx, cfg, N, args.path, LAZY_KEY_BUDGET)
+        keys, sort, rot = sorter(ctx, cfg, N, args.path, LAZY_KEY_BUDGET, graphs)
     if info is not None:
         report = max(info["reports"], key=lambda r: r["used_gib"])
         print(f"# {info['what']}, ring {ring}, depth {info['depth']}, Lq={ctx.num_q}, "
@@ -284,7 +294,7 @@ def main() -> int:
     pad = np.zeros(slots)
     pad[:N] = vals
     ct = keys.encrypt(pad, slots=slots)
-    secs = []
+    secs, peaks = [], []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
         lazy0 = rot.stats.lazy_keygens if rot else 0
@@ -292,10 +302,18 @@ def main() -> int:
         out = sort(ct)
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
     lazy = (rot.stats.lazy_keygens - lazy0) if rot else 0
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(peaks)
+    stages = getattr(sort, "stages", None) or (info or {}).get("stages")
+    if stages is not None:
+        print(f"# stages {'on CUDA graphs' if stages.graphs else 'eager'}: {len(stages)} stages, "
+              f"{stages.graph_count()} graphs held, capture {stages.capture_seconds():.2f}s "
+              f"(host seconds, in the warm-up); peak in the warm-up {peaks[0]:.2f} GiB, in the "
+              f"timed sort {peaks[1]:.2f} GiB ({smi})")
     err = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
     label = f"{args.algo} {args.path}" if args.algo == "direct" else args.algo
+    label += " eager" if args.eager else ""
     phases = ", ".join(f"{k} {v:.2f}s" for k, v in (info or {}).get("phase_s", {}).items())
     print(f"# {label} N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s"
           f"{f' ({phases})' if phases else ''}; max error {err:.3e}; lazy keygens in the timed "

@@ -7,9 +7,12 @@
 Builds the context (butterfly NTT for `per_op`, the default NTT for
 `staged`, or the one `--ntt` names), keys and sorter at N=128, ring 2^17, runs a warm-up sort, then one sort
 under the profiler, and prints: the sort's wall-clock with and without the
-profiler, the device time of all kernels, the share of the wall-clock the
-device was busy (the union of kernel intervals), device time by kernel
-class, and the kernels that took most.  Needs a CUDA device.
+profiler, the device time of all kernels and how many ran, the host's
+launch calls (kernel launches and graph launches), the share of the
+wall-clock the device was busy (the union of kernel intervals), device time
+by kernel class, and the kernels that took most.  The staged path runs
+twice on the same keys and input: eagerly (`graphs=False`) and on CUDA
+graphs (the default on the card).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -79,10 +82,12 @@ def rotation_steps(N: int, path: str, lazy_key_budget: int | None = None) -> lis
     return [] if lazy_key_budget else sorted(rotation_indices_direct_sort(N, RING))
 
 
-def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None):
+def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None,
+           graphs: bool | None = None):
     """(keys, sort, composer) on `ctx`: keys from seed 0 with the path's
     rotation keys, `sort(ct)` the whole sort, the per-op sort's
-    RotationComposer (None on the staged path)."""
+    RotationComposer (None on the staged path).  `graphs` is the staged
+    sort's (None: CUDA graphs on a CUDA context)."""
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
     from ..models.direct_sort import DirectSort
@@ -93,27 +98,14 @@ def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None):
     keys.gen_rotation_keys(rotation_steps(N, path, lazy_key_budget))
     ev = Evaluator(ctx, keys)
     if path == "staged":
-        return keys, StagedDirectSort(ev, N, cfg), None
+        return keys, StagedDirectSort(ev, N, cfg, graphs), None
     srt = DirectSort(ev, N, lazy_key_budget=lazy_key_budget)
     return keys, (lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg)), srt.rot
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("per_op", "staged"), default="per_op")
-    ap.add_argument("--ntt", choices=("auto", "butterfly", "mxu"), default=None,
-                    help="ntt_impl of the context (default: butterfly for per_op, auto for staged)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_sort: no CUDA device")
-
-    smi = card()
-    N, ring, top = 128, RING, 12
-    ctx, cfg, depth = sort_context(
-        N, args.path, args.ntt or ("butterfly" if args.path == "per_op" else "auto"))
-    keys, sort, _ = sorter(ctx, cfg, N, args.path)
-    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
-    ct = keys.encrypt(vals)
+def profile(sort, ct, label: str, smi: str, top: int = 12) -> dict:
+    """A warm-up sort, a plain one and one under the profiler; prints what
+    the module docstring lists and returns the output and the numbers."""
 
     def timed():
         torch.cuda.synchronize()
@@ -127,11 +119,13 @@ def main() -> int:
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         out, prof_s = timed()
-    err = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
 
-    by_name, by_class, launches, spans = Counter(), Counter(), Counter(), []
+    by_name, by_class, launches, spans, host = Counter(), Counter(), Counter(), [], Counter()
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                                  "cuGraphLaunch")):
+                host["graph" if "Graph" in e.name else "kernel"] += 1
             continue
         us = e.time_range.elapsed_us()
         by_name[e.name] += us
@@ -150,19 +144,50 @@ def main() -> int:
             cur_e = max(cur_e, e_)
     busy += cur_e - cur_s
     total = sum(by_name.values())
-
-    print(f"{smi}")
-    print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, ntt {ctx.ntt_impl}; "
-          f"max error {err:.3e}")
-    print(f"# wall: warm-up {warm_s:.3f}s, plain {plain_s:.3f}s, profiled {prof_s:.3f}s")
-    print(f"# device time of all kernels {total / 1e6:.3f}s in {sum(launches.values())} "
-          f"launches; device busy {busy / 1e6:.3f}s = {100 * busy / 1e6 / prof_s:.1f}% of the "
-          f"profiled wall ({smi})")
-    for label, us in by_class.most_common():
-        print(f"#   {100 * us / total:5.1f}%  {us / 1e6:7.3f}s  {label}")
+    kernels = sum(launches.values())
+    share = 100 * busy / 1e6 / prof_s
+    print(f"# {label}: wall: warm-up {warm_s:.3f}s, plain {plain_s:.3f}s, profiled {prof_s:.3f}s")
+    print(f"# {label}: device time of all kernels {total / 1e6:.3f}s in {kernels} kernels; "
+          f"host launch calls: {host['kernel']} kernel, {host['graph']} graph; device busy "
+          f"{busy / 1e6:.3f}s = {share:.1f}% of the profiled wall ({smi})")
+    for cls, us in by_class.most_common():
+        print(f"#   {100 * us / total:5.1f}%  {us / 1e6:7.3f}s  {cls}")
     print(f"# top {top} kernels by device time:")
     for name, us in by_name.most_common(top):
         print(f"#   {100 * us / total:5.1f}%  {us / 1e6:7.3f}s  {launches[name]:6d}x  {name[:110]}")
+    return dict(out=out, warm_s=warm_s, plain_s=plain_s, prof_s=prof_s, kernels=kernels,
+                host=dict(host), busy_share=share)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("per_op", "staged"), default="per_op")
+    ap.add_argument("--ntt", choices=("auto", "butterfly", "mxu"), default=None,
+                    help="ntt_impl of the context (default: butterfly for per_op, auto for staged)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_sort: no CUDA device")
+
+    smi = card()
+    N, ring = 128, RING
+    ctx, cfg, depth = sort_context(
+        N, args.path, args.ntt or ("butterfly" if args.path == "per_op" else "auto"))
+    keys, sort, _ = sorter(ctx, cfg, N, args.path, graphs=False)
+    vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
+    ct = keys.encrypt(vals)
+    print(f"{smi}")
+    print(f"# {args.path} DirectSort N={N}, ring {ring}, depth {depth}, ntt {ctx.ntt_impl}")
+    runs = {"eager": sort}
+    if args.path == "staged":
+        from ..parallel.direct_staged import StagedDirectSort
+
+        runs["graphs"] = StagedDirectSort(sort.ev, N, cfg)
+    got = {label: profile(run, ct, f"{args.path} {label}", smi) for label, run in runs.items()}
+    for label, r in got.items():
+        err = float(np.abs(keys.decrypt(r["out"], N) - np.sort(vals)).max())
+        print(f"# {args.path} {label}: max error {err:.3e}")
+    if len(got) == 2 and not torch.equal(got["eager"]["out"].data, got["graphs"]["out"].data):
+        raise SystemExit("profile_sort: the sort on graphs differs from the eager sort")
     return 0
 
 
