@@ -27,6 +27,20 @@ Phases (each failure raises, and the script exits non-zero):
      seconds, the graphs, the peaks, and the roofline of the sort on graphs,
      phase by phase: the share of the speed of light on `roofline.H100` of
      one sort's op tallies (`phase_stats`) and the unit that bounds it;
+ 15. (run right after phase 5, on its K1 context and keys) the gather-free
+     automorphism (`core/auto_affine.py`): the microbenchmark
+     (`utils/auto_microbench.py`) of the gather, `torch.roll` and the affine
+     path at [2, Lq, 2^17] and on one hoisted operand [3, Lq+K, 2^17], the
+     affine path equal to the gather for rotations 1, -1, 64 and
+     conjugation; the staged N=128 sort on an evaluator built with
+     FHE_AFFINE_AUTO=1, eagerly and on CUDA graphs (a warm-up, then a timed
+     sort each), K1 launched, K2 not, output planes equal to phase 5's
+     gather sort, max error < 0.01, peak within the reckoning with the
+     affine tables; then, on butterfly contexts (K2 only): the experiment
+     ladder (`utils/experiments.py`, DirectSort N=4 and 8, three trials,
+     ring 2048, each row max error < 0.01) and its aggregate, the decrypt
+     probe (`utils/probe_direct.py`, N=16, ring 2^12, sort error < 0.01)
+     and the rotation bench (`utils/rotation_bench.py`, ring 2^12);
   6. drive the per-op path the same way on a butterfly context:
      DirectSort(ev, 128).sort over the full key set, and require K2
      launches > 0 and K1 launches == 0 for the timed sort.
@@ -841,6 +855,131 @@ def _phase14_scan(ctx2, counters, smi):
     return k2
 
 
+def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
+    """The gather-free automorphism (`core/auto_affine.py`) on phase 5's K1
+    context and keys: (a) the microbenchmark at [2, Lq, 2^17] and on one
+    hoisted operand [3, Lq+K, 2^17], the affine path equal to the gather for
+    rotations 1, -1, 64 and conjugation; (b) the staged N=128 sort on an
+    evaluator built with FHE_AFFINE_AUTO=1, eagerly and on CUDA graphs, each
+    output equal to phase 5's gather sort `out_ref` (seconds `gather_s`, by
+    label: eager and on graphs); (c) the experiment
+    ladder (DirectSort N=4, 8, three trials, ring 2048) and its aggregate;
+    (d) the decrypt probe; (e) the rotation bench.  Returns the K1 launches
+    of the affine sort on graphs and the K2 launches of (c)-(e)."""
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.parallel.direct_staged import StagedDirectSort
+    from fhe_sorting_tpu_torch.utils import (
+        auto_microbench, experiments, hbm_budget, probe_direct, rotation_bench)
+
+    # -- (a) the microbenchmark
+    t0 = time.time()
+    tables = ctx.auto_tables()
+    _sync()
+    print(f"# affine: tables of the {ctx.num_q + ctx.num_sp} primes {time.time() - t0:.2f}s, "
+          f"{tables.nbytes() / 2**30:.3f} GiB ({hbm_budget.affine_table_bytes(ctx) / 2**30:.3f} "
+          f"GiB reckoned)")
+    for label, limbs, batch in (("a ciphertext", ctx.active_limbs(0), 2),
+                                ("a hoisted operand", ctx.target_limbs(0), 3)):
+        r = auto_microbench.bench(ctx, limbs, batch, reps=10)
+        print(f"# affine microbench, {label}: {auto_microbench.describe(r)} ({smi})")
+        print("# affine microbench JSON: " + json.dumps(r))
+    print("# one affine automorphism of [2, Lq, 2^17] by kernel (torch.profiler):\n# "
+          + auto_microbench.profile(ctx, ctx.active_limbs(0), 2).replace("\n", "\n# "))
+    _release()
+
+    # -- (b) the staged N=128 sort on the affine path, eagerly and on graphs
+    prev = os.environ.get("FHE_AFFINE_AUTO")
+    os.environ["FHE_AFFINE_AUTO"] = "1"
+    try:
+        ev = Evaluator(ctx, keys)
+    finally:
+        if prev is None:
+            del os.environ["FHE_AFFINE_AUTO"]
+        else:
+            os.environ["FHE_AFFINE_AUTO"] = prev
+    if not ev.use_affine:
+        raise AssertionError("affine: FHE_AFFINE_AUTO=1 on a K1 context must turn the path on")
+    autos = [0]
+    apply_auto = ev._apply_auto
+
+    def counted_auto(*a, **kw):
+        autos[0] += 1
+        return apply_auto(*a, **kw)
+
+    ev._apply_auto = counted_auto
+    k1_graphs = 0
+    for (label, graphs), ref_s in zip((("affine sort eager", False), ("affine sort on graphs", None)),
+                                      gather_s):
+        report = hbm_budget.check_phase(
+            ctx, len(keys.rot), 4, work_cts=hbm_budget.work_cts("direct_staged", graphs is None),
+            affine=True, label=f"{label} N={N}")
+        srt = StagedDirectSort(ev, N, cfg, graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        srt(ct)
+        _sync()
+        warm_s = time.time() - t0
+        warm_peak = torch.cuda.max_memory_allocated() / 2**30
+        autos[0] = 0
+        out, secs, (k1, k2) = _counted(counters, lambda: srt(ct))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = keys.decrypt(out, N)
+        err = float(np.abs(got - np.sort(vals)).max())
+        per_sort = {}
+        for (op, *_), v in srt.stage_stats().items():
+            per_sort[op] = per_sort.get(op, 0) + v // srt.stages["D"].calls
+        print(f"# {label} N={N} (K1 context, FHE_AFFINE_AUTO=1): warm-up {warm_s:.3f}s, sort "
+              f"{secs:.3f}s against {ref_s:.3f}s by the gather (phase 5); K1 launches {k1}, K2 launches "
+              f"{k2}; automorphisms a sort: {per_sort.get('rot', 0)} rotations (op_stats), "
+              f"{per_sort.get('mult_pt', 0)} plaintext products, {autos[0]} affine automorphisms "
+              f"run from Python in the timed sort (0 on graphs: replays); graphs "
+              f"{srt.stages.graph_count()}, captured in {srt.stages.capture_seconds():.2f}s; peak "
+              f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the sort; max sort error "
+              f"{err:.3e} ({smi})")
+        _check_memory(label, report, max(peak, warm_peak), smi)
+        if not torch.equal(out.data, out_ref.data):
+            raise AssertionError(f"{label}: output planes differ from phase 5's gather sort")
+        if k1 <= 0 or k2 != 0:
+            raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
+        if not np.all(np.isfinite(got)) or not err < 0.01:
+            raise AssertionError(f"{label}: sort error {err} >= 0.01")
+        if graphs is None:
+            k1_graphs = k1
+        del srt, out
+        _release()
+    del ev, tables
+    _release()
+
+    # -- (c) the experiment ladder, (d) the probe, (e) the rotation bench
+    tmp = tempfile.mkdtemp(prefix="fhe_ladder_")
+    try:
+        out_dir = os.path.join(tmp, "direct")
+        rows, secs, counts = _counted(counters, lambda: experiments.main(
+            ["--algo", "direct", "--sizes", "4", "8", "--trials", "3", "--out", out_dir]))
+        total = experiments.aggregate(out_dir)
+        k2 = _require_k2_only("ladder", counts)
+        for row in total["results"]:
+            print(f"# ladder row ({secs:.1f}s in all, ring 2048): {json.dumps(row)} ({smi})")
+            if not 2.0 ** row["max_err_log2"] < 0.01:
+                raise AssertionError(f"ladder N={row['N']}: max error 2^{row['max_err_log2']} >= 0.01")
+        if [r["N"] for r in total["results"]] != [4, 8] or total["results"] != rows:
+            raise AssertionError("ladder: the aggregate differs from the rows the run wrote")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res, secs, counts = _counted(counters, lambda: probe_direct.main(["--n", "16", "--ring", "4096"]))
+    print(f"# probe DirectSort N=16, ring 2^12: rank error {res['rank_err']:.3e}, sort error "
+          f"{res['sort_err']:.3e}, constructRank {res['t_rank_s']:.3f}s, rotationIndexCheckN "
+          f"{res['t_idx_s']:.3f}s ({smi})")
+    if not res["sort_err"] < 0.01:
+        raise AssertionError(f"probe: sort error {res['sort_err']} >= 0.01")
+    k2 += _require_k2_only("probe", counts)
+    res, secs, counts = _counted(counters, lambda: rotation_bench.main(
+        ["--ring", "4096", "--chains", "1", "5", "10"]))
+    print(f"# rotation bench, ring 2^12: {json.dumps(res['results'])} ({smi})")
+    k2 += _require_k2_only("rotation bench", counts)
+    return k1_graphs, k2
+
+
 def _roofline_line(ctx, srt, phase_s, smi):
     """The staged sort's share of the speed of light on this card, phase by
     phase: `roofline.accumulate_sol` over one sort's `phase_stats()` (the
@@ -1040,7 +1179,13 @@ def main() -> int:
           f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {k1_launches} (replay tallies); "
           f"peak {warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB replaying ({smi})")
     _roofline_line(ctx, srt, phase_s, smi)
-    del staged, srt, ev, keys, ctx, fs, k1, ct, out_e, out_g
+    del staged, srt, ev, out_e
+    _release()
+
+    # -- phase 15: the gather-free automorphism on phase 5's context and keys
+    k1_affine, k2_phase15 = _phase15_affine(ctx, keys, ct, vals, cfg, out_g, (eager_s, staged_s),
+                                            (fs_ntt, bf_ntt), smi)
+    del keys, ctx, fs, k1, ct, out_g
     _release()
 
     # -- phase 6: the per-op path (butterfly context, K2) ----------------------
@@ -1076,6 +1221,7 @@ def main() -> int:
     del keys
     _release()
     by_phase["scan sorts"] = _phase14_scan(ctx2, counters, smi)
+    by_phase["ladder, probe, rotation bench"] = k2_phase15
     del ctx2, bf, k2
     _release()
     for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
@@ -1085,7 +1231,9 @@ def main() -> int:
         by_phase[name] = phase(counters, smi)
         _release()
     k2_launches = sum(by_phase.values())
-    print(f"# K2 launches by phase: {by_phase}; K1 launches: staged sort {k1_launches}")
+    print(f"# K2 launches by phase: {by_phase}; K1 launches: staged sort {k1_launches} by the "
+          f"gather, {k1_affine} on the affine path (each a sort on graphs)")
+    k1_launches += k1_affine
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",

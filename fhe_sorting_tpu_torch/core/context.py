@@ -16,6 +16,9 @@ the same parameters.  Differences:
     the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
     butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
     CPU);
+  * the gather-free automorphism's tables (`auto_tables`) and per-g
+    constants (`galois_affine`) are made on first use and kept on the device,
+    like the gather's permutations (`galois_perm`);
   * `frozen` (set by `Evaluator.frozen`, around a CUDA graph capture) makes
     every upload and every fill of a device cache raise `FrozenError`: a
     capture records kernels without running them, so a table made inside
@@ -31,6 +34,7 @@ from decimal import Decimal, getcontext
 import numpy as np
 import torch
 
+from . import auto_affine
 from . import ntt as nttm
 from . import ntt_mxu
 from . import primes as primes_mod
@@ -222,6 +226,10 @@ class Context:
         self._exp_pos = np.zeros(2 * n, dtype=np.int64)
         self._exp_pos[self._root_exp] = np.arange(n)
         self._galois_perm_cache = {}
+        # tables and per-g constants of the gather-free automorphism
+        # (`core/auto_affine.py`), made on first use
+        self._auto_tables = None
+        self._galois_affine_cache = {}
 
     def thawed(self, what: str) -> None:
         """Raise `FrozenError` naming `what` inside a frozen section."""
@@ -361,3 +369,25 @@ class Context:
             tgt = (g * self._root_exp) % (2 * self.params.ring_n)
             self._galois_perm_cache[g] = self.tensor(self._exp_pos[tgt])
         return self._galois_perm_cache[g]
+
+    # -- gather-free automorphism (core/auto_affine.py) ----------------------
+
+    def auto_tables(self) -> auto_affine.AffineAutoTables:
+        """Per-limb DFT tables of the affine automorphism path, for every
+        prime of the chain; built once, on first use."""
+        if self._auto_tables is None:
+            self.thawed("the affine automorphism tables")
+            n = self.params.ring_n
+            self._auto_tables = auto_affine.build_tables(
+                tuple(self.all_primes), n, ntt_mxu.split_n(n)[0], self.device)
+        return self._auto_tables
+
+    def galois_affine(self, g: int) -> auto_affine.AffineAutoConsts:
+        """Per-g selector matrices of the affine automorphism path, cached on
+        the device."""
+        if g not in self._galois_affine_cache:
+            self.thawed(f"new affine automorphism constants (galois element {g})")
+            n = self.params.ring_n
+            self._galois_affine_cache[g] = auto_affine.build_consts(
+                g, n, ntt_mxu.split_n(n)[0], self.device)
+        return self._galois_affine_cache[g]

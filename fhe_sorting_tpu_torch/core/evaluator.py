@@ -7,6 +7,10 @@ plaintext roll of `mult_plain_at` and the batched linear combination
 `combo`.  Every op runs eagerly on `ctx.device` and returns the
 same canonical residues as the reference.
 
+The automorphism is a gather by default.  `FHE_AFFINE_AUTO` opts into the
+gather-free form of `core/auto_affine.py` by the JAX package's rule: "1" on
+a four-step (K1) context, "force" on any.  Both give the same residues.
+
 Key switching is hybrid: ModUp (INTT, CRT base extension per digit as an
 exact modular matmul, NTT of every digit in one batched call), the inner
 product with the key, then ModDown (division by P).  Every NTT goes through
@@ -24,6 +28,7 @@ graph captures it (`parallel/whole_graph.py`).
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 from collections import Counter, OrderedDict
 from contextlib import contextmanager
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from . import ntt as nttm
+from .auto_affine import apply_affine
 from .cipher import Ciphertext, Plaintext
 from .context import Context, FrozenError
 from .encoding import coeffs_to_residues, encode_coeffs
@@ -70,6 +76,11 @@ class Evaluator:
         self._combo_memo: dict = {}
         # inside `frozen()`: every memoised tensor and key the ops read
         self._reads: list | None = None
+        # the gather-free automorphism, opt-in as in the JAX package
+        aff = os.environ.get("FHE_AFFINE_AUTO", "0")
+        self.use_affine = aff == "force" or (aff == "1" and ctx.ntt_impl == "mxu")
+        if self.use_affine:
+            ctx.auto_tables()
 
     # -- frozen sections ---------------------------------------------------
 
@@ -321,9 +332,9 @@ class Evaluator:
         if roll % (self.ctx.params.ring_n // 2) == 0:
             return self.mult(a, pt)
         # np.roll(v, s) = slot left-rotation by -s
-        perm = self.ctx.galois_perm(self.ctx.galois_element_rot(-roll))
+        g = self.ctx.galois_element_rot(-roll)
         self.op_stats[("mult_pt", a.level)] += 1
-        rolled = self._pt_planes(pt)[:, perm]
+        rolled = self._apply_auto(self._pt_planes(pt), g, a.level)
         return replace(a, data=mulmod(a.data, rolled, self.moduli(a)), sdeg=2)
 
     def _mult_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -408,9 +419,25 @@ class Evaluator:
         assert g in self.keys.rot, f"missing rotation key for galois {g}"
         return self._read(self.keys.rot[g])
 
-    def _automorphism(self, a: Ciphertext, g: int, ksk: KeySwitchKey | None = None) -> Ciphertext:
+    def _apply_auto(self, data: torch.Tensor, g: int, level: int,
+                    target: bool = False) -> torch.Tensor:
+        """sigma_g on evaluation-domain planes [..., L, n]: the gather, or
+        the affine path's products where `use_affine` is on.  `target`: the
+        planes are the extended basis, the active Q limbs at `level` then
+        the special primes."""
+        ctx = self.ctx
+        if not self.use_affine:
+            return data[..., ctx.galois_perm(g)]
+        limbs = ctx.target_limbs(level) if target else ctx.active_limbs(level)
+        tables = self._read(ctx.auto_tables()).select(limbs)
+        return apply_affine(data, self._read(ctx.galois_affine(g)), tables)
+
+    def _automorphism(self, a: Ciphertext, g: int, ksk: KeySwitchKey | None = None,
+                      gather: bool = False) -> Ciphertext:
+        """sigma_g and the key switch back to s; `gather` takes the gather
+        whatever `use_affine` says."""
         ksk = self._rot_key(g) if ksk is None else ksk
-        d = a.data[..., self.ctx.galois_perm(g)]
+        d = a.data[..., self.ctx.galois_perm(g)] if gather else self._apply_auto(a.data, g, a.level)
         e0, e1 = self._keyswitch_core(d[1], a.level, ksk)
         return a.with_data(torch.stack([add_mod(d[0], e0, self.moduli(a)), e1]))
 
@@ -425,9 +452,9 @@ class Evaluator:
         """Left slot-rotation by r with the key `ksk`, key-switched even where
         r is a multiple of the slot count (galois element 1: a key to s
         itself).  The sharded DirectSort's batch offsets, one uniform program
-        for every batch."""
+        for every batch; always by the gather, as in the JAX package."""
         self.op_stats[("rot", a.level)] += 1
-        return self._automorphism(a, self.ctx.galois_element_rot(r), ksk)
+        return self._automorphism(a, self.ctx.galois_element_rot(r), ksk, gather=True)
 
     def conjugate(self, a: Ciphertext) -> Ciphertext:
         self.op_stats[("rot", a.level)] += 1
@@ -449,10 +476,10 @@ class Evaluator:
         self.op_stats[("rot_hoisted", a.level)] += 1
         g = self.ctx.galois_element_rot(r)
         ksk = self._rot_key(g)
-        perm = self.ctx.galois_perm(g)
-        acc0, acc1 = self._inner_product(pre[..., perm], a.level, ksk)
+        digits = self._apply_auto(pre, g, a.level, target=True)
+        acc0, acc1 = self._inner_product(digits, a.level, ksk)
         e = self._moddown(torch.stack([acc0, acc1]), a.level)
-        c0 = add_mod(a.data[0][..., perm], e[0], self.ctx.p_active(a.level))
+        c0 = add_mod(self._apply_auto(a.data[0], g, a.level), e[0], self.ctx.p_active(a.level))
         return Ciphertext(torch.stack([c0, e[1]]), a.level, a.sdeg, a.slots)
 
     # -- batched linear combinations ---------------------------------------

@@ -59,6 +59,17 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name, or "cpu": what a measurement ran on."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
 @dataclass(frozen=True)
 class NttTables:
     """Butterfly twiddles for a set of primes, int64 on the context device.

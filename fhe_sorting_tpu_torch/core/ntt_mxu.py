@@ -229,8 +229,18 @@ def mod_matmul(a: torch.Tensor, b: torch.Tensor, p) -> torch.Tensor:
     four half products run as float64 matmuls: every partial sum is an
     integer below K * 2^32, exact in float64 for K < 2^21.
     """
-    a_lo, a_hi = (a & 0xFFFF).double(), (a >> 16).double()
-    b_lo, b_hi = (b & 0xFFFF).double(), (b >> 16).double()
+    return mod_matmul_halves(a, split_halves(b), p)
+
+
+def split_halves(b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 16-bit halves of int64 residues below 2^32, as float64."""
+    return (b & 0xFFFF).double(), (b >> 16).double()
+
+
+def mod_matmul_halves(a: torch.Tensor, b_halves, p) -> torch.Tensor:
+    """`mod_matmul` against a right operand split once by `split_halves`."""
+    a_lo, a_hi = split_halves(a)
+    b_lo, b_hi = b_halves
     ll = torch.matmul(a_lo, b_lo).long()
     mid = (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)).long()
     hh = torch.matmul(a_hi, b_hi).long()

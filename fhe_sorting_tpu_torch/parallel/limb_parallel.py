@@ -117,6 +117,10 @@ class LimbParallelEvaluator(Evaluator):
         self.mesh = mesh
         self.axis = axis
         self.ctx, self.keys, self.op_stats = ev.ctx, ev.keys, ev.op_stats
+        # a block's automorphism is the gather: the affine path's tables
+        # are selected by whole limb sets (the sharded classes keep the
+        # gather, as the JAX package's do)
+        self.use_affine = False
 
     def __getattr__(self, name):
         # the plain evaluator's state (pt_stats, pt_cache_bytes, ...)

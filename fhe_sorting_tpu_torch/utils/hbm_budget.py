@@ -25,11 +25,19 @@ their outputs and their shared memory pool stay allocated beside the keys,
 and its peak is taken over the first sort, which runs each stage eagerly and
 then captures it.  After it runs, `check_peak` holds the measured peak to
 the budget.
+
+The gather-free automorphism (`core/auto_affine.py`, on where
+`Evaluator.use_affine` is) adds its tables, eight [L, n2, n2] planes of 8
+bytes over every prime of the chain (`affine_table_bytes`), and the
+working set of its products (`WORK_CTS["affine"]`): `check_phase(...,
+affine=True)`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..core.ntt_mxu import split_n
 
 RESIDUE_BYTES = torch.empty((), dtype=torch.int64).element_size()
 # left for the caching allocator's slack, key-switch temporaries ([dnum, Lq+K,
@@ -85,7 +93,22 @@ WORK_CTS = {
     # ScanDirectSort N=128 at ring 2^17, 15.56 GiB in the warm-up: 10 keys x
     # 0.533 + 4 cts x 0.133 GiB (phase 14's sort, on its own keys)
     "direct_scan_graphs": 74,
+    # -- beside a path's own term where the automorphism is the affine path's
+    # (`check_phase(..., affine=True)`): the float64 intermediates of its
+    # products.  The staged N=128 sort on the affine path peaked 2.38 GiB
+    # above the same sort by the gather eagerly and 2.37 GiB on graphs
+    # (`chip_smoke.py` phase 15 against phase 5's sorts, on an H100 80GB
+    # HBM3 at 700 W); less the 1.42 GiB of tables, 7.2 x 0.133 GiB rounded up
+    "affine": 8,
 }
+
+
+def affine_table_bytes(ctx) -> int:
+    """The affine automorphism's tables (`Context.auto_tables`) in bytes:
+    `fb`, `fib` and `wneg` as int64 residues and their five float64 forms,
+    each [L, n2, n2] over every prime of the chain, and the primes."""
+    n2 = split_n(ctx.params.ring_n)[1]
+    return (8 * n2 * n2 + 1) * (ctx.num_q + ctx.num_sp) * RESIDUE_BYTES
 
 
 def work_cts(path: str, graphs: bool) -> int:
@@ -115,27 +138,31 @@ def ct_bytes(ctx, level: int = 0) -> int:
 
 
 def phase_bytes(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
-                work_cts: int = 4) -> int:
+                work_cts: int = 4, affine: bool = False) -> int:
     """Resident bytes for one execution phase.
 
     n_rot_keys : rotation keys resident during the phase
     n_cts      : long-lived ciphertexts (inputs + accumulators)
     work_cts   : transient ciphertext-sized temporaries in flight
+    affine     : the automorphism is the affine path's (its tables and the
+                 working set of its products)
     """
     total = (n_rot_keys + (1 if relin else 0)) * ksk_bytes(ctx)
     total += (n_cts + work_cts) * ct_bytes(ctx, 0)
+    if affine:
+        total += affine_table_bytes(ctx) + WORK_CTS["affine"] * ct_bytes(ctx, 0)
     return total
 
 
 def check_phase(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
-                work_cts: int = 4, capacity_gb: float | None = None,
+                work_cts: int = 4, affine: bool = False, capacity_gb: float | None = None,
                 headroom_frac: float = DEFAULT_HEADROOM_FRAC,
                 label: str = "phase") -> dict:
     """Account one phase and raise if it cannot fit the device's memory.
     `capacity_gb=None` reads the context's CUDA device."""
     if capacity_gb is None:
         capacity_gb = device_capacity_gb(ctx)
-    used = phase_bytes(ctx, n_rot_keys, n_cts, relin=relin, work_cts=work_cts)
+    used = phase_bytes(ctx, n_rot_keys, n_cts, relin=relin, work_cts=work_cts, affine=affine)
     budget = capacity_gb * (1 - headroom_frac) * (1 << 30)
     report = {
         "label": label,
@@ -144,6 +171,8 @@ def check_phase(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
         "n_rot_keys": n_rot_keys,
         "n_cts": n_cts,
         "work_cts": work_cts,
+        "affine_gib": round(phase_bytes(ctx, 0, 0, relin=False, work_cts=0, affine=affine)
+                            / (1 << 30), 2),
         "used_gib": round(used / (1 << 30), 2),
         "budget_gib": round(budget / (1 << 30), 2),
         "fits": used <= budget,

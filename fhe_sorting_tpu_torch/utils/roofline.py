@@ -36,14 +36,17 @@ class ChipSpec:
     mxu_macs_s: float            # tensor-core (MXU) multiply-adds a second
     int_ops_s: float             # 32-bit integer operations a second outside them
     mxu_name: str = "MXU"
+    fp64_flops_s: float = 0.0    # float64 operations a second (0: not rated)
 
 
 # NVIDIA's data sheet for the H100 SXM at its 700 W power limit, dense rates:
 # HBM3 3.35 TB/s; int8 tensor cores 1979 T op/s = 989.5 T MAC/s; 67 T op/s of
 # float32 on the CUDA cores (a multiply-add counted as two), the rate taken
-# for 32-bit integer work, for which no rate of its own is published.
+# for 32-bit integer work, for which no rate of its own is published; 67 T
+# float64 op/s on the tensor cores (the float64 products of the affine
+# automorphism, `utils/auto_microbench.py`).
 H100 = ChipSpec("H100 SXM (700 W)", hbm_bytes_s=3.35e12, mxu_macs_s=989.5e12,
-                int_ops_s=67e12, mxu_name="tensor cores")
+                int_ops_s=67e12, mxu_name="tensor cores", fp64_flops_s=67e12)
 # the reference's default chip, kept to hold this module to the reference:
 # the reference folds its VPU work into the HBM bound, so nothing here is
 # charged to `int_ops_s`

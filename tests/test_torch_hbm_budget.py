@@ -68,6 +68,22 @@ def test_check_phase_report_and_raise(env):
         hb.check_phase(ctx, 5, 2, capacity_gb=fits_gb * 1.01, headroom_frac=0.5)
 
 
+def test_affine_tables_reckoned(env):
+    """With the affine automorphism on, a phase also holds the path's tables,
+    exactly the bytes `Context.auto_tables` makes, and its products' working
+    set; off, nothing changes."""
+    ctx, _ = env
+    tables = ctx.auto_tables()
+    assert hb.affine_table_bytes(ctx) == tables.nbytes()
+    extra = hb.affine_table_bytes(ctx) + hb.WORK_CTS["affine"] * hb.ct_bytes(ctx, 0)
+    assert hb.phase_bytes(ctx, 3, 2, affine=True) == hb.phase_bytes(ctx, 3, 2) + extra
+    fits_gb = hb.phase_bytes(ctx, 3, 2) / (1 << 30) / (1 - hb.DEFAULT_HEADROOM_FRAC) * 1.001
+    rep = hb.check_phase(ctx, 3, 2, capacity_gb=fits_gb)
+    assert rep["affine_gib"] == 0
+    with pytest.raises(MemoryError):
+        hb.check_phase(ctx, 3, 2, affine=True, capacity_gb=fits_gb)
+
+
 def test_cpu_context_has_no_capacity_to_read(env):
     ctx, _ = env
     with pytest.raises(ValueError, match="capacity_gb"):
