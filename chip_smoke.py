@@ -83,6 +83,16 @@ Phases (each failure raises, and the script exits non-zero):
      a limb-parallel mult + rescale + rotate on a (1 x 1) mesh bit-equal to
      the plain evaluator, and ShardedMehp24 at N=512 over two 256 x 256
      parts on phase 12's MEHP24 chain; each sort max error < 0.01.
+ 16. (last) the entry points of the system's own measurements, each as a
+     user runs it: `python -m fhe_sorting_tpu_torch.utils.bench --n 128
+     --trials 1` as a subprocess (the staged N=128 sort on K1 and graphs:
+     `bench.py`'s keys, error < 0.01, within the 128-bit logQP budget, a
+     share of the speed of light in (0, 105)%, K1 launched in the timed
+     sort); `utils/ntt_bench.py` at its defaults ([2, 40, 2^16]: K2, the
+     plain four-step and K1 bit-equal to the plain butterfly, then a
+     rotation and a multiplication on K1); `utils/run_bootstrap.py` at its
+     defaults (ring 2^14, sparse secret, level budget 3, on K1), max error
+     < 1e-2.
 Phases 7-14 run butterfly contexts: each must launch K2 and never K1, with
 the counts set to 0 just before and read just after.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
@@ -106,7 +116,9 @@ needs, and that excess is the kernel's to answer for, not part of its bound.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -365,47 +377,24 @@ def _phase7_serve(ctx2, keys, counters, smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-# the EvalMod shapes of phases 8 and 9: K bounds the q0-multiple I of the
-# secret in use, the double-angle count keeps the fitted range K / 2^r at 32
-# (uniform) or 3.25 (sparse)
-BOOT_UNIFORM = dict(K=512.0, sin_degree=270, double_angle=4, asin_terms=3)
-BOOT_SPARSE = dict(K=13.0, sin_degree=64, double_angle=2, asin_terms=3)
-
-
-def _boot_env(depth, hamming, shape, budget, smi, label, pt_cache_bytes=None, n_cts=4):
+def _boot_env(depth, hamming, budget, smi, label, pt_cache_bytes=None, n_cts=4):
     """Context, keys (conjugation + the power-of-two basis), evaluator,
-    composer and Bootstrapper of one bootstrap configuration; the memory is
-    reckoned before anything is allocated.  `pt_cache_bytes` bounds the
-    evaluator's plaintext memo (None: its default)."""
-    from fhe_sorting_tpu_torch.core.bootstrap import Bootstrapper
-    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
-    from fhe_sorting_tpu_torch.core.evaluator import _PT_CACHE_BYTES, Evaluator
-    from fhe_sorting_tpu_torch.core.keys import Keys
-    from fhe_sorting_tpu_torch.ops.rotation import RotationComposer
-    from fhe_sorting_tpu_torch.utils import hbm_budget
+    composer and Bootstrapper of one bootstrap configuration at ring 2^17 on
+    a butterfly context, built as `utils/run_bootstrap.py` builds its own
+    (with its EvalMod shape for the secret: hamming 64 or, with None, uniform
+    ternary); the memory is reckoned before anything is allocated.
+    `pt_cache_bytes` bounds the evaluator's plaintext memo (None: its
+    default)."""
+    from fhe_sorting_tpu_torch.utils import run_bootstrap
 
     t0 = time.time()
-    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
-                             base_limbs=4, first_mod_bits=30, secret_hamming=hamming,
-                             ntt_impl="butterfly"))
+    ctx = run_bootstrap.context(RING, depth, hamming, ntt_impl="butterfly")
     logqp = sum(np.log2(float(p)) for p in ctx.all_primes)
-    basis = sorted({1 << i for i in range(RING.bit_length() - 2)})
-    lazy = 8
-    # resident: the basis, the conjugation key, the lazy pool; the plaintext
-    # memo at its bound (in ciphertexts) and a refresh's working set
-    memo = pt_cache_bytes or _PT_CACHE_BYTES
-    report = hbm_budget.check_phase(ctx, len(basis) + 1 + lazy,
-                                    n_cts + -(-memo // hbm_budget.ct_bytes(ctx, 0)),
-                                    work_cts=hbm_budget.WORK_CTS["bootstrap"], label=label)
+    report = run_bootstrap.reckon(ctx, label, pt_cache_bytes, n_cts)
     print(f"# {label}: depth {depth}, Lq={ctx.num_q}, K={ctx.num_sp}, logQP={logqp:.0f}; "
           f"reckoned before allocating: {report}")
-    keys = Keys.generate(ctx, seed=0)
-    keys.gen_conj_key()
-    ev = Evaluator(ctx, keys, **({} if pt_cache_bytes is None else
-                                 {"pt_cache_bytes": pt_cache_bytes}))
-    rot = RotationComposer(ev, basis, lazy_key_budget=lazy)
-    bs = Bootstrapper(ev, level_budget=budget, rot=rot, **shape)
-    keys.gen_rotation_keys(basis)
+    keys, ev, rot, bs = run_bootstrap.assemble(ctx, budget, run_bootstrap.shape(RING, hamming is None),
+                                               pt_cache_bytes)
     _sync()
     print(f"# {label}: context, keys ({len(keys.rot)} resident) and the factored transforms "
           f"{time.time() - t0:.1f}s; {len(bs.required_rotations())} distinct BSGS rotations, "
@@ -423,7 +412,7 @@ def _phase8_bootstrap(counters, smi):
     launches."""
     # the refresh ends at level 30 (scale degree 2): depth 33 leaves two levels
     depth = 33
-    ctx, keys, ev, rot, bs, report = _boot_env(depth, None, BOOT_UNIFORM, (3, 3), smi,
+    ctx, keys, ev, rot, bs, report = _boot_env(depth, None, (3, 3), smi,
                                                "bootstrap (uniform ternary secret)",
                                                pt_cache_bytes=24 << 30)
     nh = RING // 2
@@ -498,7 +487,7 @@ def _phase9_bitonic(counters, smi, n=8):
     # the evaluator's default plaintext memo: one refresh's plaintexts at this
     # depth are over 24 GiB, and a memo smaller than that cyclic working set
     # never hits, so a larger one would only take memory
-    ctx, keys, ev, rot, bs, report = _boot_env(depth, 64, BOOT_SPARSE, (3, 3), smi,
+    ctx, keys, ev, rot, bs, report = _boot_env(depth, 64, (3, 3), smi,
                                                "bitonic (sparse secret, hamming 64)")
     keys.gen_rotation_keys([-(1 << i) for i in range(n.bit_length() - 1)])
     fired = []
@@ -980,18 +969,121 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
     return k1_graphs, k2
 
 
+def _phase16_entry_points(counters, smi):
+    """The port's entry points for the system's own measurements, each run
+    as a user runs it: (a) the flagship benchmark (`utils/bench.py`) at
+    N=128 with one timed trial, as a subprocess through its orchestrator,
+    its result line held to `bench.py`'s keys, an error below 0.01, the
+    128-bit budget and a share of the speed of light in (0, 105)%, and K1
+    launched in its timed sort (its worker's count); (b) the NTT
+    microbenchmark (`utils/ntt_bench.py`) at its defaults, every transform,
+    forward and inverse, bit-equal to the plain butterfly; (c) K1 held to its
+    plain version on the bootstrap harness's chain, then the harness
+    (`utils/run_bootstrap.py`) at its defaults, ring 2^14 under a sparse
+    secret on K1, max error below 1e-2.  Returns the (K1, K2) launches of
+    the bench's timed sort and of the refresh, and K1's largest difference
+    from its plain version; the launches of the NTT bench and of the checks
+    only time and compare the kernels, and are not counted."""
+    from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu
+    from fhe_sorting_tpu_torch.utils import bench, ntt_bench, run_bootstrap
+
+    # -- (a) the flagship benchmark, in its own worker process
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "fhe_sorting_tpu_torch.utils.bench", "--n",
+                           str(N), "--trials", "1"], capture_output=True, text=True, env=env,
+                          cwd=root)
+    secs = time.time() - t0
+    for line in proc.stderr.strip().splitlines()[-30:]:
+        print(f"# bench stderr | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench: exit code {proc.returncode}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(f"# bench line (N={N}, one timed trial, {secs:.1f}s in all): {line}")
+    res = json.loads(line)
+    keys = {"metric", "unit", "value", "vs_baseline", "max_error", "err_method", "phase_s",
+            "phase_pct_of_sol", "logqp_bits", "logqp_128bit_budget", "security_128bit",
+            "pct_of_sol", "sol_bound_s", "baseline_ref_s", "baseline_src"}
+    if set(res) != keys:
+        raise AssertionError(f"bench: keys {sorted(res)} are not bench.py's")
+    if not (res["max_error"] < 0.01 and res["security_128bit"] is True
+            and res["err_method"] == "decrypt" and res["value"] > 0
+            and 0 < res["pct_of_sol"] < 105):
+        raise AssertionError(f"bench: result out of bounds: {res}")
+    k1_bench, k2_bench = map(int, bench.LAUNCH_LINE.search(proc.stderr).groups())
+    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench} in the timed sort ({smi})")
+    if k1_bench <= 0:
+        raise AssertionError("bench: the timed sort did not launch K1")
+
+    # -- (b) the NTT microbenchmark; its launches compare and time, uncounted
+    saved = [mod.launches for mod in counters]
+    buf = io.StringIO()
+    t0 = time.time()
+    _quiet(buf, lambda: ntt_bench.main([]))
+    for line in buf.getvalue().strip().splitlines():
+        print(f"# ntt_bench | {line}")
+    exact = [line for line in buf.getvalue().splitlines() if line.startswith("bit-exact match")]
+    if len(exact) != 6 or not all(line.endswith(": True") for line in exact):
+        raise AssertionError(f"ntt_bench: {exact}")
+    print(f"# ntt_bench at its defaults: {time.time() - t0:.1f}s")
+    for mod, n in zip(counters, saved):
+        mod.launches = n
+    _release()
+
+    # -- (c) the bootstrap harness at its defaults (ring 2^14, K1), after K1
+    # against its plain version on that chain (n1 = n2 = 128): every prime,
+    # and the key switch's extended set at the refresh's input level
+    bctx = run_bootstrap.harness_context(run_bootstrap.parser().parse_args([]))
+    ring, tabs = bctx.params.ring_n, bctx.tables
+    if bctx.ntt_impl != "mxu":
+        raise AssertionError(f"run_bootstrap: NTT {bctx.ntt_impl} at its defaults, not K1")
+    gen = torch.Generator(device=bctx.device)
+    gen.manual_seed(16)
+    k1_err = 0
+    for limbs, label in ((None, "every prime"), (bctx.target_limbs(8), "level 8 + special")):
+        p = tabs.p if limbs is None else tabs.p[limbs]
+        k1_err = max(k1_err, _check(
+            "K1", lambda x, inv: fs_ntt.four_step(x, tabs, limbs, inv),
+            lambda x, inv: ntt_mxu.ntt_plain(x, tabs, limbs, inv),
+            _rand_residues(gen, (2, p.shape[0], *ntt_mxu.split_n(ring)), p),
+            f"ring 2^{ring.bit_length() - 1}, B=2, L={p.shape[0]} ({label}; run_bootstrap's "
+            f"chain, Lq={bctx.num_q}, K={bctx.num_sp})"))
+    del bctx, tabs
+    _release()
+    tmp = tempfile.mkdtemp(prefix="fhe_boot_")
+    try:
+        buf = io.StringIO()
+        out, secs, counts = _counted(counters, lambda: _quiet(buf, lambda: run_bootstrap.main(
+            ["--out", os.path.join(tmp, "level_budgets.json")])))
+        print(f"# run_bootstrap row: {buf.getvalue().strip()} ({smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k1_boot, k2_boot = counts
+    print(f"# run_bootstrap: K1 launches {k1_boot}, K2 launches {k2_boot}; {secs:.1f}s in all")
+    if not out["max_err"] < 1e-2:
+        raise AssertionError(f"run_bootstrap: max error {out['max_err']} >= 1e-2")
+    if k1_boot <= 0:
+        raise AssertionError("run_bootstrap: the refresh did not launch K1")
+    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err
+
+
+def _quiet(buf, fn):
+    """fn() with its standard output into `buf`."""
+    with contextlib.redirect_stdout(buf):
+        return fn()
+
+
 def _roofline_line(ctx, srt, phase_s, smi):
     """The staged sort's share of the speed of light on this card, phase by
-    phase: `roofline.accumulate_sol` over one sort's `phase_stats()` (the
-    sorts so far issued the same ops each; stage D runs once a sort) against
-    the phase seconds `_run_sort` measured."""
+    phase: `roofline.phase_sol` over one sort's tallies
+    (`StagedDirectSort.one_sort_stats`) against the phase seconds
+    `_run_sort` measured."""
     from fhe_sorting_tpu_torch.utils import roofline
 
-    sorts = srt.stages["D"].calls
-    for (phase, stats), secs in zip(srt.phase_stats().items(), phase_s):
-        one = {k: v // sorts for k, v in stats.items()}
-        sol, by_op = roofline.accumulate_sol(ctx, one)
-        units = roofline.sol_by_bound(ctx, one)
+    for (phase, (sol, by_op, units)), secs in zip(
+            roofline.phase_sol(ctx, srt.one_sort_stats()).items(), phase_s):
         print(f"# roofline, staged N={N} {phase} (K1 context): measured {secs:.3f}s, SoL "
               f"{sol * 1e3:.2f} ms on {roofline.H100.name} = {100 * sol / secs:.2f}% of SoL; "
               f"bound by {max(units, key=units.get)} "
@@ -1005,16 +1097,15 @@ def main() -> int:
         return 1
     from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu
     from fhe_sorting_tpu_torch.core import primes as primes_mod
-    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
     from fhe_sorting_tpu_torch.models.direct_sort import DirectSort, rotation_indices_direct_sort
-    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig, SignFunc
+    from fhe_sorting_tpu_torch.ops.sign import SignFunc
     from fhe_sorting_tpu_torch.parallel.direct_staged import (
         StagedDirectSort, scan_rotation_indices)
     from fhe_sorting_tpu_torch.utils import hbm_budget
     from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
-    from fhe_sorting_tpu_torch.utils.params_registry import direct_sort_sign_cfg
+    from fhe_sorting_tpu_torch.utils.profile_sort import sort_context
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -1035,14 +1126,12 @@ def main() -> int:
         print("# " + report.strip().replace("\n", "\n# "))
 
     # -- phase 3: K1 against its plain version ---------------------------------
-    cn, dg, df = direct_sort_sign_cfg(N)
-    cfg = SignConfig(CompositeSignConfig(cn, dg, df))
-    depth = measure_direct_sort_depth(N, RING, cfg)["mult_depth"]
-    assert depth == measure_direct_sort_depth(N, RING, cfg, staged=False)["mult_depth"]
-    params = dict(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2, base_limbs=4, dnum=3)
+    # the bench's chain (`profile_sort.sort_context`): the metered depth,
+    # which the per-op sort needs too
     t0 = time.time()
-    ctx = Context(CkksParams(**params))
+    ctx, cfg, depth = sort_context(N, "staged")
     ctx_s = time.time() - t0
+    assert depth == measure_direct_sort_depth(N, RING, cfg, staged=False)["mult_depth"]
     assert ctx.device == dev and ctx.ntt_impl == "mxu", (ctx.device, ctx.ntt_impl)
     Lq, Ltot = ctx.num_q, ctx.num_q + ctx.num_sp
     print(f"# four-step context: ring 2^17, depth {depth}, Lq={Lq}, K={ctx.num_sp}, {ctx_s:.1f}s; "
@@ -1080,7 +1169,7 @@ def main() -> int:
 
     # -- phase 4: K2 against its plain version and against K1 ------------------
     t0 = time.time()
-    ctx2 = Context(CkksParams(**params, ntt_impl="butterfly"))
+    ctx2 = sort_context(N, "staged", "butterfly", depth=depth)[0]
     ctx2_s = time.time() - t0
     assert ctx2.ntt_impl == "butterfly" and ctx2.all_primes == ctx.all_primes
     print(f"# butterfly context: same chain, {ctx2_s:.1f}s")
@@ -1230,10 +1319,15 @@ def main() -> int:
                         ("sharded sorts", _phase13_sharded)):
         by_phase[name] = phase(counters, smi)
         _release()
+    # -- phase 16: the entry points of the system's own measurements --------
+    k1_entry, by_phase["bench, run_bootstrap"], k1_err16 = _phase16_entry_points(counters, smi)
+    k1_err = max(k1_err, k1_err16)
+    _release()
     k2_launches = sum(by_phase.values())
     print(f"# K2 launches by phase: {by_phase}; K1 launches: staged sort {k1_launches} by the "
-          f"gather, {k1_affine} on the affine path (each a sort on graphs)")
-    k1_launches += k1_affine
+          f"gather, {k1_affine} on the affine path (each a sort on graphs), {k1_entry} in phase "
+          f"16 (the bench's timed sort and the bootstrap harness's refresh)")
+    k1_launches += k1_affine + k1_entry
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",

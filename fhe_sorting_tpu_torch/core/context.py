@@ -15,7 +15,9 @@ the same parameters.  Differences:
   * `ntt_impl="auto"` picks the four-step NTT with the CUDA kernel K1 when
     the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
     butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
-    CPU);
+    CPU).  The environment variable `FHE_NTT`, where set, takes the place
+    of "auto" (the reference's variable also overrides a pinned
+    `ntt_impl`; here a caller that pins one keeps it);
   * the gather-free automorphism's tables (`auto_tables`) and per-g
     constants (`galois_affine`) are made on first use and kept on the device,
     like the gather's permutations (`galois_perm`);
@@ -28,6 +30,7 @@ the same parameters.  Differences:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from decimal import Decimal, getcontext
 
@@ -41,6 +44,9 @@ from . import primes as primes_mod
 from .modmath import PrimeConsts
 
 getcontext().prec = 120
+
+
+NTT_IMPLS = ("auto", "mxu", "butterfly")
 
 
 class FrozenError(RuntimeError):
@@ -202,6 +208,11 @@ class Context:
 
         n = params.ring_n
         impl = params.ntt_impl
+        if impl == "auto":
+            impl = os.environ.get("FHE_NTT", impl)
+        if impl not in NTT_IMPLS:
+            raise ValueError(f"ntt_impl (or FHE_NTT) {impl!r}: expected one of "
+                             f"{', '.join(NTT_IMPLS)}")
         if impl == "auto":
             impl = ("mxu" if self.device.type == "cuda"
                     and ntt_mxu.supported(n, ntt_mxu.split_n(n)[0])

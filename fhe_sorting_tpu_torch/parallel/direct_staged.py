@@ -91,6 +91,13 @@ class StagedDirectSort:
             out["constructRank" if name[0] in "ABCD" else "rotationIndexCheck"] += st.tally()
         return out
 
+    def one_sort_stats(self) -> dict:
+        """`phase_stats` of one sort: every sort so far issued the same ops,
+        and stage D runs once a sort (a warm-up and its capture included)."""
+        sorts = self.stages["D"].calls
+        return {ph: Counter({k: v // sorts for k, v in st.items()})
+                for ph, st in self.phase_stats().items()}
+
     # -- phase 1: constructRank -------------------------------------------
 
     def _sign_coeff_plan(self):

@@ -10,8 +10,12 @@ Sizes (every plane is int64 in this package: `RESIDUE_BYTES` = 8):
     [digits, num_q + num_sp, ring_n]         -> 2*digits*(Lq+K)*n*8 bytes
   * ciphertext at level l (`core/cipher.py`): [2, limbs_at(l), ring_n]
                                              -> 2*Ll*n*8 bytes
-  * NTT twiddle tables and plans are O(limbs * n) once per context and
-    counted by the headroom fraction rather than itemized.
+  * the butterfly NTT's twiddle tables and the plans are O(limbs * n) once
+    per context and lie inside the measured working sets below (every
+    `WORK_CTS` term was fitted on a butterfly context); the four-step NTT's
+    tables of a K1 context, int64 and the kernel's copy, are larger (1.6
+    GiB over 115 primes at ring 2^17) and are counted itself
+    (`ntt_table_bytes`).
 
 The capacity is the context device's own (`torch.cuda.get_device_properties`);
 on the CPU there is none to ask, and the caller passes `capacity_gb`.  Every
@@ -35,9 +39,11 @@ affine=True)`.
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import torch
 
-from ..core.ntt_mxu import split_n
+from ..core.ntt_mxu import FourStepTables, split_n
 
 RESIDUE_BYTES = torch.empty((), dtype=torch.int64).element_size()
 # left for the caching allocator's slack, key-switch temporaries ([dnum, Lq+K,
@@ -82,7 +88,10 @@ WORK_CTS = {
     # holds the most: a stage's eager working set, then its capture's in the
     # graphs' pool, beside every earlier graph's buffers and outputs.
     # DirectSort N=1024 staged, 29.82 GiB in the warm-up (14.85 replaying):
-    # 10 keys x 0.674 + 4 cts x 0.168 GiB (`large_sort --n 1024 --path staged`)
+    # 10 keys x 0.674 + 4 cts x 0.168 GiB (`large_sort --n 1024 --path staged`).
+    # On a K1 context the same sort (`utils/bench.py`) peaked at 30.95 GiB,
+    # within the 31.50 GiB reckoned with its 1.59 GiB of four-step tables
+    # (`ntt_table_bytes`)
     "direct_staged_graphs": 134,
     # staged hybrid N=512, 20.12 GiB: 11 keys x 1.172 + 8 cts x 0.195 GiB
     # (`chip_smoke.py` phase 12)
@@ -109,6 +118,24 @@ def affine_table_bytes(ctx) -> int:
     each [L, n2, n2] over every prime of the chain, and the primes."""
     n2 = split_n(ctx.params.ring_n)[1]
     return (8 * n2 * n2 + 1) * (ctx.num_q + ctx.num_sp) * RESIDUE_BYTES
+
+
+def affine_bytes(ctx) -> int:
+    """What the affine automorphism adds to a phase: its tables and the
+    working set of its products."""
+    return affine_table_bytes(ctx) + WORK_CTS["affine"] * ct_bytes(ctx, 0)
+
+
+def ntt_table_bytes(ctx) -> int:
+    """The four-step NTT's tables of a K1 context in bytes: the int64
+    tables and the kernel's copy (`ntt_mxu.FourStepTables`); 0 on a
+    butterfly context."""
+    t = ctx.tables
+    if not isinstance(t, FourStepTables):
+        return 0
+    own = sum(getattr(t, f.name).numel() * getattr(t, f.name).element_size()
+              for f in fields(t) if f.name != "kern")
+    return own + (t.kern.nbytes() if t.kern is not None else 0)
 
 
 def work_cts(path: str, graphs: bool) -> int:
@@ -146,11 +173,12 @@ def phase_bytes(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
     work_cts   : transient ciphertext-sized temporaries in flight
     affine     : the automorphism is the affine path's (its tables and the
                  working set of its products)
+    The four-step NTT's tables of a K1 context are always counted.
     """
-    total = (n_rot_keys + (1 if relin else 0)) * ksk_bytes(ctx)
+    total = ntt_table_bytes(ctx) + (n_rot_keys + (1 if relin else 0)) * ksk_bytes(ctx)
     total += (n_cts + work_cts) * ct_bytes(ctx, 0)
     if affine:
-        total += affine_table_bytes(ctx) + WORK_CTS["affine"] * ct_bytes(ctx, 0)
+        total += affine_bytes(ctx)
     return total
 
 
@@ -171,8 +199,8 @@ def check_phase(ctx, n_rot_keys: int, n_cts: int, *, relin: bool = True,
         "n_rot_keys": n_rot_keys,
         "n_cts": n_cts,
         "work_cts": work_cts,
-        "affine_gib": round(phase_bytes(ctx, 0, 0, relin=False, work_cts=0, affine=affine)
-                            / (1 << 30), 2),
+        "ntt_tables_gib": round(ntt_table_bytes(ctx) / (1 << 30), 2),
+        "affine_gib": round(affine_bytes(ctx) / (1 << 30), 2) if affine else 0.0,
         "used_gib": round(used / (1 << 30), 2),
         "budget_gib": round(budget / (1 << 30), 2),
         "fits": used <= budget,

@@ -54,23 +54,31 @@ def card() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def sort_context(N: int, path: str, ntt: str):
-    """(context, sign config, depth) of a DirectSort of N values at ring
-    2^17: the composite-scaling chain (scale 2^56, comp 2), the registry's
-    sign config, the depth from the depth meter."""
+def sort_context(N: int, path: str, ntt: str = "auto", ring: int = RING,
+                 depth: int | None = None, sign: tuple = (None, None, None), comp: int = 2,
+                 dnum: int = 3, device=None):
+    """(context, sign config, depth) of a DirectSort of N values: the
+    composite-scaling chain (comp 2: scale 2^56 from prime pairs over 4
+    base limbs; comp 1: 2^28 over 2), the registry's sign config with each
+    of `sign`'s (cn, dg, df) that is not None in its place, and the depth
+    from the depth meter unless `depth` is given."""
     from ..core.context import CkksParams, Context
     from ..ops.sign import CompositeSignConfig, SignConfig
     from .depth_meter import measure_direct_sort_depth
     from .params_registry import direct_sort_sign_cfg
 
-    cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(N)))
-    depth = measure_direct_sort_depth(N, RING, cfg, staged=path == "staged")["mult_depth"]
-    ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
-                             base_limbs=4, dnum=3, ntt_impl=ntt))
+    cfg = SignConfig(CompositeSignConfig(*(r if o is None else o for o, r in
+                                           zip(sign, direct_sort_sign_cfg(N)))))
+    if depth is None:
+        depth = measure_direct_sort_depth(N, ring, cfg, staged=path == "staged")["mult_depth"]
+    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, scale_bits=56 if comp == 2 else 28,
+                             comp=comp, base_limbs=4 if comp == 2 else 2, dnum=dnum,
+                             ntt_impl=ntt), device=device)
     return ctx, cfg, depth
 
 
-def rotation_steps(N: int, path: str, lazy_key_budget: int | None = None) -> list[int]:
+def rotation_steps(N: int, path: str, lazy_key_budget: int | None = None,
+                   ring: int = RING) -> list[int]:
     """The rotation keys a path keeps resident: the minimal scan set
     (`staged`), the full per-op set, or none where the per-op sort's composer
     generates keys just in time (`lazy_key_budget`)."""
@@ -78,8 +86,8 @@ def rotation_steps(N: int, path: str, lazy_key_budget: int | None = None) -> lis
     from ..parallel.direct_staged import scan_rotation_indices
 
     if path == "staged":
-        return sorted(scan_rotation_indices(N, RING))
-    return [] if lazy_key_budget else sorted(rotation_indices_direct_sort(N, RING))
+        return sorted(scan_rotation_indices(N, ring))
+    return [] if lazy_key_budget else sorted(rotation_indices_direct_sort(N, ring))
 
 
 def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None,
@@ -95,7 +103,7 @@ def sorter(ctx, cfg, N: int, path: str, lazy_key_budget: int | None = None,
     from ..parallel.direct_staged import StagedDirectSort
 
     keys = Keys.generate(ctx, seed=0)
-    keys.gen_rotation_keys(rotation_steps(N, path, lazy_key_budget))
+    keys.gen_rotation_keys(rotation_steps(N, path, lazy_key_budget, ctx.params.ring_n))
     ev = Evaluator(ctx, keys)
     if path == "staged":
         return keys, StagedDirectSort(ev, N, cfg, graphs), None

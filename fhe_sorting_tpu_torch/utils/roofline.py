@@ -241,6 +241,14 @@ def sol_by_bound(ctx, op_stats, chip: ChipSpec = H100, rb: int = RESIDUE_BYTES) 
     return out
 
 
+def phase_sol(ctx, phases: dict, chip: ChipSpec = H100, rb: int = RESIDUE_BYTES) -> dict:
+    """{phase: (sol_seconds, by op kind, by bound)}: `accumulate_sol` and
+    `sol_by_bound` of each op tally in `phases` (for example
+    `StagedDirectSort.one_sort_stats()`)."""
+    return {ph: (*accumulate_sol(ctx, st, chip, rb), sol_by_bound(ctx, st, chip, rb))
+            for ph, st in phases.items()}
+
+
 def ks_geometry(ctx, level: int):
     """(limbs, num_sp, dnum_active, alpha) for a Context at `level`."""
     L = ctx.limbs_at(level)

@@ -84,6 +84,22 @@ def test_affine_tables_reckoned(env):
         hb.check_phase(ctx, 3, 2, affine=True, capacity_gb=fits_gb)
 
 
+def test_four_step_tables_reckoned():
+    """A four-step (K1) context's tables are counted in every phase, exactly
+    their int64 bytes here (the kernel's copy exists on the card only); a
+    butterfly context's lie in the fitted working sets."""
+    params = dict(ring_n=256, mult_depth=2)
+    bf = Context(CkksParams(**params), device="cpu")
+    fs = Context(CkksParams(**params, ntt_impl="mxu"), device="cpu")
+    assert hb.ntt_table_bytes(bf) == 0 and fs.tables.kern is None
+    n1 = n2 = 16
+    limbs = fs.num_q + fs.num_sp
+    assert hb.ntt_table_bytes(fs) == limbs * (1 + 2 * n1 * n1 + 2 * n2 * n2 + 4 * n1 * n2) * 8
+    assert hb.phase_bytes(fs, 3, 2) == hb.phase_bytes(bf, 3, 2) + hb.ntt_table_bytes(fs)
+    rep = hb.check_phase(fs, 3, 2, capacity_gb=1.0)
+    assert rep["ntt_tables_gib"] == round(hb.ntt_table_bytes(fs) / (1 << 30), 2)
+
+
 def test_cpu_context_has_no_capacity_to_read(env):
     ctx, _ = env
     with pytest.raises(ValueError, match="capacity_gb"):

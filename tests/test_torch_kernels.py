@@ -20,7 +20,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ring,limbs,batch,subset", [
-    (1 << 12, 3, 2, None), (1 << 17, 4, 2, None),
+    (1 << 12, 3, 2, None), (1 << 14, 3, 2, None), (1 << 17, 4, 2, None),
     (1 << 12, 4, 1, None), (1 << 15, 4, 2, (3, 0, 2)), (1 << 17, 4, 1, (2, 1)),
 ])
 def test_k1_matches_plain_on_card(ring, limbs, batch, subset):
@@ -104,7 +104,8 @@ def test_k2_matches_plain_on_card(ring, bits, subset):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port (and
-    `chip_smoke`) loads neither JAX nor any module of the JAX package."""
+    `chip_smoke`) loads neither JAX nor any module of the JAX package, nor
+    the JAX package's scripts (`bench`, `benchmarks`)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fhe_sorting_tpu_torch as pkg\n"
@@ -113,8 +114,9 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'fhe_sorting_tpu')\n"
-        "             or m.startswith(('jax.', 'jaxlib.', 'fhe_sorting_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'fhe_sorting_tpu', 'bench',\n"
+        "                                              'benchmarks')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'fhe_sorting_tpu.', 'benchmarks.')))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, cwd=_ROOT)
@@ -122,8 +124,9 @@ def test_port_imports_no_jax():
 
 def test_port_sources_name_no_jax_import():
     """No source of the port, nor `chip_smoke.py`, has an import statement
-    that names JAX or the JAX package (docstrings may cite counterparts)."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fhe_sorting_tpu)(\.|\s|$)")
+    that names JAX, the JAX package or its scripts (docstrings may cite
+    counterparts)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fhe_sorting_tpu|bench|benchmarks)(\.|\s|$)")
     files = [os.path.join(_ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(os.path.join(_ROOT, "fhe_sorting_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]

@@ -142,3 +142,30 @@ def test_registry_functions_match_jax():
     assert (treg.measured_direct_sort_depth(8, 512) == jreg.measured_direct_sort_depth(8, 512))
     public = lambda m: {k for k in vars(m) if not k.startswith("_") and k != "annotations"}
     assert public(treg) == public(jreg)
+
+
+@pytest.mark.parametrize("env,impl,want", [
+    ("butterfly", "auto", "butterfly"), ("mxu", "auto", "mxu"), ("mxu", "butterfly", "butterfly"),
+    ("butterfly", "mxu", "mxu"), (None, "mxu", "mxu"), (None, "auto", "butterfly"),
+])
+def test_fhe_ntt_picks_the_implementation(monkeypatch, env, impl, want):
+    """`FHE_NTT`, where set, takes the place of `ntt_impl="auto"`, as in the
+    JAX package; "auto" is the butterfly on the CPU in both.  A pinned
+    `ntt_impl` wins over the variable (the JAX package lets the variable
+    override it, so those cases are not compared with it)."""
+    if env is None:
+        monkeypatch.delenv("FHE_NTT", raising=False)
+    else:
+        monkeypatch.setenv("FHE_NTT", env)
+    params = dict(ring_n=1 << 15, mult_depth=2, ntt_impl=impl)
+    ctx = Context(CkksParams(**params), device="cpu")
+    assert ctx.ntt_impl == want
+    if env is None or impl == "auto":
+        assert want == JContext(JParams(**params)).ntt_impl
+    assert hasattr(ctx.tables, "w1f") == (want == "mxu")
+
+
+def test_fhe_ntt_unknown_value_raises(monkeypatch):
+    monkeypatch.setenv("FHE_NTT", "pallas")
+    with pytest.raises(ValueError, match="auto, mxu, butterfly"):
+        Context(CkksParams(ring_n=1 << 15, mult_depth=2), device="cpu")

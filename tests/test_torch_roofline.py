@@ -77,6 +77,10 @@ def test_accumulate_sol_matches_jax_on_staged_phase_stats():
     units = roofline.sol_by_bound(ctx, srt.stage_stats())
     assert set(units) <= {"HBM", "tensor cores", "CUDA cores"}
     assert sum(units.values()) == pytest.approx(total)
+    # phase_sol: both, phase by phase
+    for ph, (sol, by_op, by_unit) in roofline.phase_sol(ctx, phases).items():
+        assert (sol, by_op) == roofline.accumulate_sol(ctx, phases[ph])
+        assert by_unit == roofline.sol_by_bound(ctx, phases[ph])
 
 
 def test_h100_ntt_bound_is_chip_smokes():

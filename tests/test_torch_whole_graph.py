@@ -71,6 +71,8 @@ def test_stage_tallies_weighted_by_calls(two_sorts):
     assert srt.stage_stats() == stats1 + stats1
     for phase, counts in srt.phase_stats().items():
         assert counts == phases1[phase] + phases1[phase], phase
+    # normalised to one sort by stage D's calls: the first sort's tally
+    assert srt.one_sort_stats() == phases1
     assert {name: st.calls for name, st in srt.stages.items()} == {
         "A": 2, "Bg0": 2, "Bg1": 2, "Bf0": 2, "Bf1s": 2, "C0": 2, "D": 2,
         "E": 2, "Esub0": 2, "FG": 2, "H": 2, "I": 2}
