@@ -79,10 +79,14 @@ Phases (each failure raises, and the script exits non-zero):
      (depth 46), on CUDA graphs, each max error < 0.01;
  13. the multi-device sorts on a one-rank NCCL world (`file://` store in a
      temporary directory): ShardedDirectSort at N=1024 (depth metered on the
-     sharded class, 20 rotation and 16 batch-offset keys) after a warm-up,
-     a limb-parallel mult + rescale + rotate on a (1 x 1) mesh bit-equal to
-     the plain evaluator, and ShardedMehp24 at N=512 over two 256 x 256
-     parts on phase 12's MEHP24 chain; each sort max error < 0.01.
+     sharded class, 20 rotation and 16 batch-offset keys) and ShardedMehp24
+     at N=512 over two 256 x 256 parts on phase 12's MEHP24 chain, each
+     eagerly and on CUDA graphs (each rank's stages captured, the
+     all-reduces between them), a warm-up and a counted sort each way:
+     output planes equal, K2 launches equal, max error < 0.01; between them
+     a limb-parallel mult + rescale + rotate on a (1 x 1) mesh, eagerly and
+     as a captured stage with its NCCL all-gathers inside, replayed on a new
+     input, bit-equal to the plain evaluator.
  16. (last) the entry points of the system's own measurements, each as a
      user runs it: `python -m fhe_sorting_tpu_torch.utils.bench --n 128
      --trials 1` as a subprocess (the staged N=128 sort on K1 and graphs:
@@ -682,98 +686,158 @@ def _phase12_staged_large(counters, smi, n=512):
 
 
 def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
-    """The multi-device sorts on a one-rank NCCL world on this card: the
-    sharded DirectSort at N=1024 and the sharded MEHP24 triangle at N=512,
-    each against the budget its memory was reckoned with, and a limb-parallel
-    mult + rescale + rotate on a (1 x 1) mesh bit-equal to the plain
-    evaluator.  Returns the K2 launches of the three."""
-    import torch.distributed as dist
-
-    from fhe_sorting_tpu_torch.parallel.limb_parallel import LimbParallelEvaluator
-    from fhe_sorting_tpu_torch.parallel.mesh import init_world, make_mesh, make_mesh_2d
+    """The multi-device sorts on a one-rank NCCL world on this card, each
+    eagerly and on CUDA graphs (its stages captured, the all-reduces
+    between them) from the same keys and input: the sharded DirectSort at
+    N=1024 and the sharded MEHP24 triangle at N=512, each way a warm-up sort
+    and a counted one, the counted outputs bit-equal, each against the
+    budget its memory was reckoned with; and a limb-parallel mult + rescale
+    + rotate on a (1 x 1) mesh, eagerly and as a captured stage with its
+    all-gathers inside, bit-equal to the plain evaluator.  Returns the K2
+    launches of the counted sorts and ops."""
     from fhe_sorting_tpu_torch.utils import large_sort
 
-    tmp = tempfile.mkdtemp(prefix="fhe_world_")
-    init_world("nccl", 0, 1, os.path.join(tmp, "init"))
-    try:
-        mesh = make_mesh()
-        # -- the sharded DirectSort
+    return large_sort.one_rank_world(
+        lambda mesh: _sharded_sorts(mesh, counters, smi, n, n_mehp))
+
+
+def _both_ways(label, make, run, counters, smi, reports):
+    """`run(srt)` of the sort `make(graphs)` eagerly (`graphs=False`) and on
+    graphs: a warm-up, then a sort counted with `_counted`, each way; every
+    peak held to that way's reckoning (`reports[graphs]`).  Returns the
+    counted outputs, the K2 launches of the sort on graphs, and the sort on
+    graphs.  The launches must agree both ways."""
+    outs, k2 = {}, {}
+    for graphs in (False, True):
+        way = "on graphs" if graphs else "eager"
+        srt = make(None if graphs else False)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        ctx, keys, srt, info = large_sort.sharded_direct(n, mesh)
-        _sync()
-        setup_s = time.time() - t0
-        print(f"# {info['what']}, ring 2^17: depth {info['depth']} (metered on the sharded "
-              f"class), Lq={ctx.num_q}, K={ctx.num_sp}, logQP {info['logqp']:.1f} against "
-              f"{large_sort.LOGQP_128}; reckoned before allocating: {info['reports'][0]}; setup "
-              f"{setup_s:.1f}s ({len(keys.rot)} rotation keys + relin) ({smi})")
-        x = np.random.default_rng(0).permutation(n) / n + 0.5 / n
-        ct = keys.encrypt(x, slots=n)
-        t0 = time.time()
-        srt(ct)
+        run(srt)
         _sync()
         warm_s = time.time() - t0
-        out, secs, counts = _counted(counters, lambda: srt(ct))
+        warm_peak = torch.cuda.max_memory_allocated() / 2**30
+        outs[graphs], secs, counts = _counted(counters, lambda: run(srt))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        got = keys.decrypt(out, n)
-        err = float(np.abs(got - np.sort(x)).max())
-        print(f"# sharded DirectSort N={n}: warm-up {warm_s:.2f}s, sort {secs:.2f}s (the staged "
-              f"N=1024 sort, `large_sort --path staged`, took 72.76 s on an H100 at 700 W), "
-              f"output level {out.level}; max sort error {err:.3e} ({smi})")
-        _check_memory(f"sharded DirectSort N={n}", info["reports"][0], peak, smi)
-        if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
-            raise AssertionError(f"sharded DirectSort: sort error {err} >= 0.01")
-        k2 = _require_k2_only("sharded DirectSort", counts)
+        st = srt.stages
+        print(f"# {label} {way}: warm-up {warm_s:.2f}s, sort {secs:.2f}s; {len(st)} stages, "
+              f"{st.graph_count()} graphs held, capture {st.capture_seconds():.2f}s of the "
+              f"warm-up, {sum(g.calls for g in st.values())} dispatches over both sorts; peak "
+              f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the sort ({smi})")
+        _check_memory(f"{label} {way}", reports[graphs], max(warm_peak, peak), smi)
+        k2[graphs] = _require_k2_only(f"{label} {way}", counts)
+    if k2[True] != k2[False]:
+        raise AssertionError(f"{label}: K2 launches on graphs {k2[True]} != eager {k2[False]}")
+    return outs, k2[True], srt
 
-        # -- limb parallelism on a (1 x 1) mesh, through the NCCL all-gathers
-        lp = LimbParallelEvaluator(srt.ev, make_mesh_2d(1, 1))
-        y = keys.encrypt(np.random.default_rng(7).uniform(-1, 1, RING // 2), seed=7)
-        sh = lp.ingest(y)
 
-        def limb_ops():
-            return lp.gather(lp.rotate(lp.rescale(lp.mult(sh, sh)), 1))
+def _sharded_sorts(mesh, counters, smi, n, n_mehp):
+    from fhe_sorting_tpu_torch.parallel.direct_sharded import ShardedDirectSort
+    from fhe_sorting_tpu_torch.parallel.limb_parallel import LimbParallelEvaluator
+    from fhe_sorting_tpu_torch.parallel.mehp24_sharded import ShardedMehp24
+    from fhe_sorting_tpu_torch.parallel.mesh import make_mesh_2d
+    from fhe_sorting_tpu_torch.parallel.whole_graph import StageTable
+    from fhe_sorting_tpu_torch.utils import hbm_budget, large_sort
 
-        plain = srt.ev.rotate(srt.ev.rescale(srt.ev.mult(y, y)), 1)
-        sharded, limb_s, counts = _counted(counters, limb_ops)
-        if not torch.equal(sharded.data, plain.data):
+    def reports(ctx, report, path):
+        """{graphs: the reckoning}: the builder's on graphs, and the same
+        keys and long-lived ciphertexts with the eager working set."""
+        return {True: report, False: hbm_budget.check_phase(
+            ctx, report["n_rot_keys"], report["n_cts"], work_cts=hbm_budget.WORK_CTS[path],
+            label=f"{report['label']} eager")}
+
+    # -- the sharded DirectSort
+    t0 = time.time()
+    ctx, keys, srt, info = large_sort.sharded_direct(n, mesh)
+    _sync()
+    setup_s = time.time() - t0
+    reckoned = reports(ctx, info["reports"][0], "direct_sharded")
+    print(f"# {info['what']}, ring 2^17: depth {info['depth']} (metered on the sharded "
+          f"class), Lq={ctx.num_q}, K={ctx.num_sp}, logQP {info['logqp']:.1f} against "
+          f"{large_sort.LOGQP_128}; reckoned before allocating: {reckoned[True]}; setup "
+          f"{setup_s:.1f}s ({len(keys.rot)} rotation keys + relin) ({smi})")
+    x = np.random.default_rng(0).permutation(n) / n + 0.5 / n
+    ct = keys.encrypt(x, slots=n)
+    outs, k2, srt = _both_ways(
+        f"sharded DirectSort N={n}",
+        lambda graphs: srt if graphs is None else ShardedDirectSort(srt.ev, n, srt.cfg,
+                                                                    mesh=mesh, graphs=False),
+        lambda s: s(ct), counters, smi, reckoned)
+    if not torch.equal(outs[True].data, outs[False].data):
+        raise AssertionError("sharded DirectSort: the sort on graphs differs from the eager sort")
+    got = keys.decrypt(outs[True], n)
+    err = float(np.abs(got - np.sort(x)).max())
+    print(f"# sharded DirectSort N={n}: output planes equal eager and on graphs, output level "
+          f"{outs[True].level}; max sort error {err:.3e} (the staged N=1024 sort on K2, "
+          f"`large_sort --path staged`, took 63.60 s on graphs and 67.04 s eagerly on an H100 at "
+          f"700 W) ({smi})")
+    if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
+        raise AssertionError(f"sharded DirectSort: sort error {err} >= 0.01")
+
+    # -- limb parallelism on a (1 x 1) mesh, through the NCCL all-gathers:
+    # eagerly, then as one stage on graphs, the gathers captured with it;
+    # its second call, a replay, on a new input shows the replay gathers
+    ev = srt.ev
+    lp = LimbParallelEvaluator(ev, make_mesh_2d(1, 1))
+    table = StageTable(lp)
+
+    def limb_ops(cts):
+        return lp.gather(lp.rotate(lp.rescale(lp.mult(cts[0], cts[0])), 1))
+
+    for seed in (7, 8):
+        y = keys.encrypt(np.random.default_rng(seed).uniform(-1, 1, RING // 2), seed=seed)
+        plain = ev.rotate(ev.rescale(ev.mult(y, y)), 1)
+        eager, limb_s, counts_e = _counted(counters, lambda: limb_ops([lp.ingest(y)]))
+        staged, graph_s, counts = _counted(
+            counters, lambda: table.run("limb", limb_ops, [lp.ingest(y)]))
+        if not (torch.equal(eager.data, plain.data) and torch.equal(staged.data, plain.data)):
             raise AssertionError("limb-parallel mult + rescale + rotate differs from the plain one")
-        print(f"# limb-parallel mult + rescale + rotate on a (1 x 1) NCCL mesh, ring 2^17: "
-              f"bit-equal to the plain evaluator, {limb_s:.3f}s ({smi})")
-        k2 += _require_k2_only("limb-parallel", counts)
-        del ctx, keys, srt, info, ct, out, lp, y, sh, sharded, plain
-        _release()
+    if not table.graphs or table.graph_count() != 1 or table["limb"].calls != 2:
+        raise AssertionError("limb-parallel: the stage did not run on a captured graph")
+    print(f"# limb-parallel mult + rescale + rotate on a (1 x 1) NCCL mesh, ring 2^17: eager "
+          f"{limb_s:.3f}s, a replay of its graph (all-gathers captured) {graph_s:.3f}s on a new "
+          f"input, each bit-equal to the plain evaluator; capture {table.capture_seconds():.2f}s "
+          f"({smi})")
+    k2 += _require_k2_only("limb-parallel eager", counts_e)
+    k2 += _require_k2_only("limb-parallel replay", counts)
+    if counts != counts_e:
+        raise AssertionError(f"limb-parallel: K2 launches replayed {counts} != eager {counts_e}")
+    del ctx, keys, srt, info, ct, outs, ev, lp, table, y, plain, eager, staged
+    _release()
 
-        # -- the sharded MEHP24 triangle
-        t0 = time.time()
-        ctx, keys, srt, info = large_sort.sharded_mehp24(n_mehp, mesh)
-        _sync()
-        setup_s = time.time() - t0
-        print(f"# {info['what']}, ring 2^17: depth {info['depth']}, Lq={ctx.num_q}, "
-              f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; reckoned before allocating: "
-              f"{info['reports'][0]}; setup {setup_s:.1f}s ({smi})")
-        x = np.random.default_rng(6).permutation(n_mehp) / n_mehp + 0.5 / n_mehp
-        tile = large_sort.TILE
-        parts = []
-        for i in range(n_mehp // tile):
-            pad = np.zeros(info["slots"])
-            pad[:tile] = x[i * tile:(i + 1) * tile]
-            parts.append(keys.encrypt(pad, slots=info["slots"]))
-        out, secs, counts = _counted(counters, lambda: srt(parts))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        got = np.concatenate([keys.decrypt(c, tile) for c in out])
-        err = float(np.abs(got - np.sort(x)).max())
-        print(f"# sharded MEHP24 N={n_mehp}: sort {secs:.2f}s (phase 12 above sorts N=512 on the "
-              f"staged MEHP24, 8.18 s on an H100 at 700 W), output level {out[0].level}; max "
-              f"sort error {err:.3e} ({smi})")
-        _check_memory(f"sharded MEHP24 N={n_mehp}", info["reports"][0], peak, smi)
-        if not np.all(np.isfinite(got)) or got.shape != (n_mehp,) or not err < 0.01:
-            raise AssertionError(f"sharded MEHP24: sort error {err} >= 0.01")
-        k2 += _require_k2_only("sharded MEHP24", counts)
-        del ctx, keys, srt, info, parts, out
-        _release()
-        return k2
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+    # -- the sharded MEHP24 triangle
+    t0 = time.time()
+    ctx, keys, srt, info = large_sort.sharded_mehp24(n_mehp, mesh)
+    _sync()
+    setup_s = time.time() - t0
+    reckoned = reports(ctx, info["reports"][0], "mehp24_sharded")
+    print(f"# {info['what']}, ring 2^17: depth {info['depth']}, Lq={ctx.num_q}, "
+          f"K={ctx.num_sp}, logQP {info['logqp']:.1f}; reckoned before allocating: "
+          f"{reckoned[True]}; setup {setup_s:.1f}s ({smi})")
+    x = np.random.default_rng(6).permutation(n_mehp) / n_mehp + 0.5 / n_mehp
+    tile = large_sort.TILE
+    parts = []
+    for i in range(n_mehp // tile):
+        pad = np.zeros(info["slots"])
+        pad[:tile] = x[i * tile:(i + 1) * tile]
+        parts.append(keys.encrypt(pad, slots=info["slots"]))
+    outs, k2_m, srt = _both_ways(
+        f"sharded MEHP24 N={n_mehp}",
+        lambda graphs: srt if graphs is None else ShardedMehp24(
+            srt.ev, tile, len(parts), *srt.cfg, mesh=mesh, graphs=False),
+        lambda s: s(parts), counters, smi, reckoned)
+    if not all(torch.equal(a.data, b.data) for a, b in zip(outs[True], outs[False])):
+        raise AssertionError("sharded MEHP24: the sort on graphs differs from the eager sort")
+    got = np.concatenate([keys.decrypt(c, tile) for c in outs[True]])
+    err = float(np.abs(got - np.sort(x)).max())
+    print(f"# sharded MEHP24 N={n_mehp}: output planes equal eager and on graphs, output level "
+          f"{outs[True][0].level}; max sort error {err:.3e} (phase 12 above sorts N=512 on the "
+          f"staged MEHP24) ({smi})")
+    if not np.all(np.isfinite(got)) or got.shape != (n_mehp,) or not err < 0.01:
+        raise AssertionError(f"sharded MEHP24: sort error {err} >= 0.01")
+    del ctx, keys, srt, info, parts, outs
+    _release()
+    return k2 + k2_m
 
 
 def _phase14_scan(ctx2, counters, smi):

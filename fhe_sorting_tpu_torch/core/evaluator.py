@@ -436,7 +436,7 @@ class Evaluator:
                       gather: bool = False) -> Ciphertext:
         """sigma_g and the key switch back to s; `gather` takes the gather
         whatever `use_affine` says."""
-        ksk = self._rot_key(g) if ksk is None else ksk
+        ksk = self._rot_key(g) if ksk is None else self._read(ksk)
         d = a.data[..., self.ctx.galois_perm(g)] if gather else self._apply_auto(a.data, g, a.level)
         e0, e1 = self._keyswitch_core(d[1], a.level, ksk)
         return a.with_data(torch.stack([add_mod(d[0], e0, self.moduli(a)), e1]))

@@ -147,6 +147,16 @@ class Keys:
             self._s_dev_t = self.ctx.tensor(self.s_eval)
         return self._s_dev_t
 
+    def _ksk_draws(self, rng) -> tuple:
+        """What one key-switch key draws from the numpy stream `rng`: its
+        error [dnum, n] and the seed of its uniform part.  A caller that
+        skips a key of a stream (`parallel/direct_sharded.gen_offset_keys`)
+        draws these alone, so the keys after it stay the same."""
+        dnum = len(self.ctx.digit_layout(0))
+        n = self.ctx.params.ring_n
+        e = np.rint(rng.normal(0, self.ctx.params.sigma, size=(dnum, n))).astype(np.int64)
+        return e, int(rng.integers(0, 2**63))
+
     def _gen_ksk(self, target: torch.Tensor, rng) -> KeySwitchKey:
         """target: s' residues [Lq+K, n] eval domain on the device.
 
@@ -156,9 +166,9 @@ class Keys:
         n = ctx.params.ring_n
         gres = ctx.tensor(self._gadget_residues())            # [dnum, Ltot]
         dnum, Ltot = gres.shape
-        e = np.rint(rng.normal(0, ctx.params.sigma, size=(dnum, n))).astype(np.int64)
+        e, seed = self._ksk_draws(rng)
         gen = torch.Generator(device=ctx.device)
-        gen.manual_seed(int(rng.integers(0, 2**63)))
+        gen.manual_seed(seed)
         p = ctx.pc.p                                        # [Ltot, 1]
         e_res = torch.remainder(ctx.tensor(e)[:, None, :], p)  # [dnum, Ltot, n]
         e_eval = nttm.ntt(e_res, ctx.tables)

@@ -14,7 +14,8 @@ so every batch uses the giant-step keys and masks of batch 0, and only the
 "batch offset" rotation by b*P differs, each with a key of its own
 (`gen_offset_keys`, the key of offset 0 a key switch to s itself).  The
 distinct-key count drops from O(num_batch * P/np) to O(P/np + num_batch),
-which is what makes N=1024 fit one card.
+which is what makes N=1024 fit one card.  As in the JAX package, each rank
+holds only the offset keys of its own batches.
 
 Phase structure (sort_algo.h:368-506, 658-750):
   1. each rank rotates the input by each of its batches' offsets, builds the
@@ -26,14 +27,37 @@ Phase structure (sort_algo.h:368-506, 658-750):
      shared giants and applies the batch-offset rotation; the outputs
      all-reduce and fold into the sorted ciphertext, replicated.
 
+The JAX package compiles a rank's program into one jitted SPMD step.  Here
+it runs as named stages of a `StageTable` (`parallel/whole_graph.py`): on
+a CUDA context each stage is a captured CUDA graph, replayed at every later
+call, and on the CPU (or with `graphs=False`) an eager call:
+
+  constructRank       R_off{b}  batch b's offset rotation (its key baked in)
+                      R_cmp     babies, vecRots, compare (shared by batches)
+                      R_acc     the rank's running sum of its batches
+                      R_fold    log-tree fold + SetSlots - 0.5
+  rotationIndexCheck  P_imr     index minus rank, in the Chebyshev domain
+                      P_place   checking vector (an input: the JAX step's
+                                sharded argument), PS sinc, mask product,
+                                blind rotation (shared by batches)
+                      P_off{b}  batch b's offset rotation
+                      P_acc     the rank's running sum
+                      P_fold    log-tree fold + SetSlots
+
+The two all-reduces run between the stages, on the caller's stream; the
+ranks' agreement on the summed metadata is checked once per sort object
+(`mesh.check_agreement`), when its stages are first built.
+
 On a ("batch", "limb") mesh pass a `LimbParallelEvaluator`: the input is
-sharded over the limb axis on the way in and gathered on the way out.
+sharded over the limb axis on the way in and gathered on the way out, and
+the limb all-gathers run inside the stages (captured with them on a CUDA
+context).
 """
 
 from __future__ import annotations
 
-import functools
 import math
+from collections import Counter
 
 import numpy as np
 
@@ -42,7 +66,8 @@ from ..models.direct_sort import DirectSort, _default_np, checking_vector_n, ind
 from ..ops.sign import SignConfig, SignFunc
 from ..utils.sinc_coeffs import doubled_sinc_coefficients
 from .limb_parallel import LimbParallelEvaluator
-from .mesh import all_reduce_mod, batch_sharding, make_mesh
+from .mesh import all_reduce_mod, batch_sharding, check_agreement, make_mesh
+from .whole_graph import StageTable
 
 
 def rotation_indices_sharded(N: int, ring_n: int) -> set:
@@ -63,31 +88,43 @@ def rotation_indices_sharded(N: int, ring_n: int) -> set:
     return idx
 
 
-def gen_offset_keys(keys, offsets):
+def gen_offset_keys(keys, offsets, keep=None) -> list:
     """Rotation keys for the batch offsets, in order, from one stream
     (`default_rng(11)`) and INCLUDING rotation 0, the identity galois
     element g=1 (a key switch to s itself: every batch applies an offset
     rotation, batch 0 too, so all run one program).  A key already held is
-    returned as it is."""
+    returned as it is.
+
+    `keep` (indices into `offsets`; all by default) are the keys this rank
+    holds; the others' entries are None, and no key of theirs is made.  The
+    i-th key is the stream's i-th draw, whether it is made, held already or
+    skipped (`Keys._ksk_draws`), so every world size computes with the same
+    keys."""
+    keep = set(range(len(offsets)) if keep is None else keep)
+    gs = [keys.ctx.galois_element_rot(r) for r in offsets]
+    # the stream is drawn as far as the last kept key still to make
+    last = max((i for i in keep if gs[i] not in keys.rot), default=-1)
     rng = np.random.default_rng(11)
-    out = []
-    for r in offsets:
-        g = keys.ctx.galois_element_rot(r)
-        if g not in keys.rot:
+    for i, g in enumerate(gs[:last + 1]):
+        if i in keep and g not in keys.rot:
             # galois_perm(1) is the identity: the target is s itself
             keys.rot[g] = keys._gen_ksk(keys._s_dev[:, keys.ctx.galois_perm(g)], rng)
-        out.append(keys.rot[g])
-    return out
+        else:
+            keys._ksk_draws(rng)
+    return [keys.rot[g] if i in keep else None for i, g in enumerate(gs)]
 
 
 class ShardedDirectSort:
-    """DirectSort with its batches sharded over the mesh's "batch" axis.
+    """DirectSort with its batches sharded over the mesh's "batch" axis, its
+    rank's program as named stages (the module docstring).
 
-    Every rank generates and holds all num_batch offset keys (one stream,
-    so every world size computes with the same keys) and uses those of its
-    own batches.  Every rank needs at least one batch."""
+    Each rank holds the offset keys of its own batches only
+    (`gen_offset_keys`).  Every rank needs at least one batch.  `graphs=None`
+    runs the stages on CUDA graphs on a CUDA context and eagerly on the CPU;
+    `graphs=False` runs them eagerly on the card too."""
 
-    def __init__(self, ev, N: int, sign_cfg: SignConfig, mesh=None):
+    def __init__(self, ev, N: int, sign_cfg: SignConfig, mesh=None,
+                 graphs: bool | None = None):
         self.ev = ev
         self.N = N
         self.cfg = sign_cfg
@@ -100,15 +137,44 @@ class ShardedDirectSort:
         self.batches = batch_sharding(self.mesh, self.nb)
         assert len(self.batches) > 0, f"{self.nb} batches leave this rank none"
         self.srt = DirectSort(ev, N)     # mask generators, composer, compare, PS
-        self.off_keys = gen_offset_keys(ev.keys, [b * self.P for b in range(self.nb)])
+        self.off_keys = gen_offset_keys(ev.keys, [b * self.P for b in range(self.nb)],
+                                        keep=self.batches)
         stretch = 1.0 + 4.0 / N
         self.alpha = 1.0 / (2.0 * N * stretch)
         self.coeffs = doubled_sinc_coefficients(N, stretch=stretch)
+        self.stages = StageTable(ev, graphs)
+        self._agreed: set = set()
 
-    def _batch_sum(self, cts) -> Ciphertext:
-        """This rank's batches summed as they come, then all-reduced over the
-        batch axis."""
-        local = functools.reduce(self.ev.add, cts)
+    # -- stage infrastructure ---------------------------------------------
+
+    def _run(self, name: str, fn, cts):
+        return self.stages.run(name, fn, cts)
+
+    def stage_stats(self) -> Counter:
+        """Evaluator ops of every stage call so far: each stage's
+        per-dispatch tally times its calls."""
+        return self.stages.tally()
+
+    @staticmethod
+    def phase_of(stage: str) -> str:
+        """The phase a stage belongs to: constructRank (the R_ stages) or
+        rotationIndexCheck (the P_ stages)."""
+        return "constructRank" if stage.startswith("R_") else "rotationIndexCheck"
+
+    def phase_stats(self) -> dict:
+        """`stage_stats` split by phase (`phase_of`), for the per-phase
+        roofline."""
+        out = {"constructRank": Counter(), "rotationIndexCheck": Counter()}
+        for name, st in self.stages.items():
+            out[self.phase_of(name)] += st.tally()
+        return out
+
+    def _batch_sum(self, point: str, local: Ciphertext) -> Ciphertext:
+        """This rank's sum of its batches, all-reduced over the batch axis;
+        the ranks' agreement on its metadata is checked at the first sort."""
+        if point not in self._agreed:
+            check_agreement([local], self.mesh, "batch")
+            self._agreed.add(point)
         return all_reduce_mod(self.ev, [local], self.mesh, "batch")[0]
 
     def _fold(self, ct: Ciphertext) -> Ciphertext:
@@ -116,33 +182,70 @@ class ShardedDirectSort:
             ct = self.ev.add(ct, self.srt.rot.rotate(ct, self.num_slots >> i))
         return ct.set_slots(self.N)
 
-    def _shifted(self, inp: Ciphertext, b: int) -> Ciphertext:
-        """Batch b's masked-rotation sum: the input rotated by the batch
-        offset with its own key, its baby steps, and the batch-0-shaped
-        vecRots over them (`DirectSort._vec_rots_opt` at batch 0)."""
+    def _offset(self, x: Ciphertext, b: int) -> Ciphertext:
+        """Batch b's offset rotation, with its own key."""
+        return self.ev.rotate_with_key(x, b * self.P, self.off_keys[b])
+
+    def _masked_sum(self, u: Ciphertext) -> Ciphertext:
+        """The masked-rotation sum of an offset-rotated input: its baby steps
+        and the batch-0-shaped vecRots over them (`DirectSort._vec_rots_opt`
+        at batch 0)."""
         srt = self.srt
-        u = self.ev.rotate_with_key(inp, b * self.P, self.off_keys[b])
         babies = [u if i == 0 else srt.rot.rotate(u, i) for i in range(self.np_)]
         return srt._vec_rots_opt(babies, self.P, self.num_slots, self.np_, 0)
 
-    def _partial_rank(self, inp: Ciphertext, b: int) -> Ciphertext:
-        """Phase 1 of batch b: its comparisons."""
-        return self.srt.comp.compare(inp, self._shifted(inp, b), SignFunc.CompositeSign, self.cfg)
+    # -- phase 1: constructRank -------------------------------------------
 
-    def _placed(self, imr: Ciphertext, inp: Ciphertext, b: int) -> Ciphertext:
-        """Phase 2 of batch b: its checking vector, the sinc, the blind
-        rotation with batch 0's giants (`DirectSort._blind_rotation_opt_n`)
-        and the offset rotation."""
+    def construct_rank(self, inp: Ciphertext) -> Ciphertext:
+        """The replicated rank of `inp` (at num_slots slots)."""
         ev, srt = self.ev, self.srt
-        check = checking_vector_n(self.N, self.num_slots, b * self.P) * self.alpha
-        x = ev.sub(imr, ev.make_plaintext(check, imr.level, imr.sdeg, slots=self.num_slots))
-        masked = ev.mult(srt.ps.evaluate(x, self.coeffs), inp)
-        mrots = [masked]
-        if self.np_ > 1:
-            pre = ev.rotate_precompute(masked)
-            mrots += [srt.rot.rotate_hoisted(masked, pre, i) for i in range(1, self.np_)]
-        inner = srt._blind_rotation_opt_n(mrots, self.num_slots, self.np_, 0, self.P)
-        return ev.rotate_with_key(inner, b * self.P, self.off_keys[b])
+
+        def stage_cmp(cts):
+            u, x = cts
+            return srt.comp.compare(x, self._masked_sum(u), SignFunc.CompositeSign, self.cfg)
+
+        local = None
+        for b in self.batches:
+            u = self._run(f"R_off{b}", lambda cts, b=b: self._offset(cts[0], b), [inp])
+            c = self._run("R_cmp", stage_cmp, [u, inp])
+            local = c if local is None else self._run("R_acc", lambda cts: ev.add(*cts), [local, c])
+        return self._run("R_fold", lambda cts: ev.sub(self._fold(cts[0]), 0.5),
+                         [self._batch_sum("rank", local)])
+
+    # -- phase 2: rotationIndexCheckN -------------------------------------
+
+    def index_check(self, rank: Ciphertext, inp: Ciphertext) -> Ciphertext:
+        """Each element of `inp` placed at its rank: the sorted ciphertext,
+        replicated."""
+        ev, srt = self.ev, self.srt
+
+        def stage_imr(cts):
+            r = cts[0]
+            if r.sdeg == 2:
+                r = ev.rescale(r)
+            idx_pt = ev.make_plaintext(index_vector(self.N), r.level, r.sdeg, slots=self.N)
+            imr = ev.mult(ev.rsub(idx_pt, r).set_slots(self.num_slots), self.alpha)
+            return ev.rescale(imr) if imr.sdeg == 2 else imr
+
+        def stage_place(cts):
+            imr, check, x = cts
+            masked = ev.mult(srt.ps.evaluate(ev.sub(imr, check), self.coeffs), x)
+            mrots = [masked]
+            if self.np_ > 1:
+                pre = ev.rotate_precompute(masked)
+                mrots += [srt.rot.rotate_hoisted(masked, pre, i) for i in range(1, self.np_)]
+            return srt._blind_rotation_opt_n(mrots, self.num_slots, self.np_, 0, self.P)
+
+        imr = self._run("P_imr", stage_imr, [rank])
+        local = None
+        for b in self.batches:
+            check = ev.make_plaintext(checking_vector_n(self.N, self.num_slots, b * self.P)
+                                      * self.alpha, imr.level, imr.sdeg, slots=self.num_slots)
+            inner = self._run("P_place", stage_place, [imr, check, inp])
+            placed = self._run(f"P_off{b}", lambda cts, b=b: self._offset(cts[0], b), [inner])
+            local = placed if local is None else self._run("P_acc", lambda cts: ev.add(*cts),
+                                                           [local, placed])
+        return self._run("P_fold", lambda cts: self._fold(cts[0]), [self._batch_sum("out", local)])
 
     def __call__(self, ct: Ciphertext) -> Ciphertext:
         ev = self.ev
@@ -152,15 +255,5 @@ class ShardedDirectSort:
         # slots=N encoded; the program reads it at num_slots (SetSlots
         # sparse packing, sort_algo.h:429-434)
         inp = ct.set_slots(self.num_slots)
-
-        rank = self._fold(self._batch_sum(self._partial_rank(inp, b) for b in self.batches))
-        rank = ev.sub(rank, 0.5)
-        if rank.sdeg == 2:
-            rank = ev.rescale(rank)
-        idx_pt = ev.make_plaintext(index_vector(self.N), rank.level, rank.sdeg, slots=self.N)
-        imr = ev.mult(ev.rsub(idx_pt, rank).set_slots(self.num_slots), self.alpha)
-        if imr.sdeg == 2:
-            imr = ev.rescale(imr)
-
-        out = self._fold(self._batch_sum(self._placed(imr, inp, b) for b in self.batches))
+        out = self.index_check(self.construct_rank(inp), inp)
         return ev.gather(out) if limb_parallel else out

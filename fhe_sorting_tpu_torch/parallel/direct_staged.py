@@ -81,7 +81,7 @@ class StagedDirectSort:
     def stage_stats(self) -> Counter:
         """Evaluator ops of every stage call so far: each stage's
         per-dispatch tally times its calls, as the reference sums them."""
-        return sum((st.tally() for st in self.stages.values()), Counter())
+        return self.stages.tally()
 
     def phase_stats(self) -> dict:
         """`stage_stats` split into constructRank (stages A-D) and

@@ -25,6 +25,9 @@ later work.
 
 Composes with the batch axis: on a ("batch", "limb") mesh,
 `ShardedDirectSort` shards batches over one axis and limbs over the other.
+The all-gathers run inside the ops, so a CUDA graph of a stage
+(`parallel/whole_graph.py`) captures them with the op: PyTorch's NCCL
+process group can be captured.
 """
 
 from __future__ import annotations
@@ -116,7 +119,7 @@ class LimbParallelEvaluator(Evaluator):
         self.ev = ev
         self.mesh = mesh
         self.axis = axis
-        self.ctx, self.keys, self.op_stats = ev.ctx, ev.keys, ev.op_stats
+        self.ctx, self.keys = ev.ctx, ev.keys
         # a block's automorphism is the gather: the affine path's tables
         # are selected by whole limb sets (the sharded classes keep the
         # gather, as the JAX package's do)
@@ -127,6 +130,24 @@ class LimbParallelEvaluator(Evaluator):
         if name == "ev":
             raise AttributeError(name)
         return getattr(self.ev, name)
+
+    # The op counter and a frozen section are the plain evaluator's, so a
+    # stage (`parallel/whole_graph.py`) that swaps the counter or freezes
+    # this evaluator counts, and records the reads of, the gathered ops too.
+
+    @property
+    def op_stats(self):
+        return self.ev.op_stats
+
+    @op_stats.setter
+    def op_stats(self, counter):
+        self.ev.op_stats = counter
+
+    def frozen(self):
+        return self.ev.frozen()
+
+    def _read(self, obj):
+        return self.ev._read(obj)
 
     # -- placement -----------------------------------------------------------
 

@@ -79,28 +79,44 @@ def batch_sharding(mesh: DeviceMesh, length: int, axis: str = "batch") -> range:
     return block(length, axis_size(mesh, axis), mesh.get_local_rank(axis))
 
 
-def all_reduce_mod(ev, cts: list, mesh: DeviceMesh, axis: str = "batch") -> list:
-    """Sum position by position the ciphertexts that the ranks of `axis`
-    hold, mod each limb's prime: the JAX package's chains of `ev.add` over a
-    sharded axis, as one all-reduce of int64 planes.  `cts[i]` is this
-    rank's partial sum at position i, or None where it has none (it sends
-    zeros); every ciphertext, on every rank, must carry the same (level,
-    sdeg, slots).  Canonical residues are below 2^31, so the sum of the
-    ranks' partials fits int64, and its remainder equals the chain of
-    modular adds bit for bit.  Data-free ciphertexts (the depth meter) give
-    their metadata at every position, with no collective."""
+def check_agreement(cts: list, mesh: DeviceMesh, axis: str = "batch") -> None:
+    """Raise unless the ciphertexts that the ranks of `axis` hold (None
+    where a rank has none at a position) all carry one (level, sdeg,
+    slots), the condition `all_reduce_mod` sums under.  One host round trip
+    (`all_gather_object`), so a sort runs it once, where its stage sequence
+    is first built: its stages assert the same metadata at every later
+    call.  Data-free ciphertexts (the depth meter) pass with no
+    collective."""
     held = [c for c in cts if c is not None]
     assert held, "every rank needs one ciphertext to take the shape from"
-    like = held[0]
-    if like.data is None:
-        return [like] * len(cts)
+    if held[0].data is None:
+        return
     meta = {(c.level, c.sdeg, c.slots) for c in held}
     group = mesh.get_group(axis)
     metas = [None] * dist.get_world_size(group)
     dist.all_gather_object(metas, meta, group=group)
     if len(set().union(*metas)) != 1:
         raise ValueError(f"ranks disagree on the ciphertexts' (level, sdeg, slots): {metas}")
+
+
+def all_reduce_mod(ev, cts: list, mesh: DeviceMesh, axis: str = "batch") -> list:
+    """Sum position by position the ciphertexts that the ranks of `axis`
+    hold, mod each limb's prime: the JAX package's chains of `ev.add` over a
+    sharded axis, as one all-reduce of int64 planes.  `cts[i]` is this
+    rank's partial sum at position i, or None where it has none (it sends
+    zeros); every ciphertext, on every rank, must carry the same (level,
+    sdeg, slots), which `check_agreement` checks.  Canonical residues are
+    below 2^31, so the sum of the ranks' partials fits int64, and its
+    remainder equals the chain of modular adds bit for bit.  No host round
+    trip: it runs between CUDA graph replays on the caller's stream.
+    Data-free ciphertexts give their metadata at every position, with no
+    collective."""
+    held = [c for c in cts if c is not None]
+    assert held, "every rank needs one ciphertext to take the shape from"
+    like = held[0]
+    if like.data is None:
+        return [like] * len(cts)
     stack = torch.stack([c.data if c is not None else torch.zeros_like(like.data) for c in cts])
-    dist.all_reduce(stack, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(stack, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
     stack = torch.remainder(stack, ev.moduli(like))
     return [like.with_data(stack[i]) for i in range(len(cts))]

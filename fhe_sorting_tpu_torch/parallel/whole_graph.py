@@ -9,7 +9,8 @@ replayed, so a stage costs one graph launch instead of thousands of kernel
 launches from Python.
 
 `WholeGraph(ev, call)`, for `call(list[Ciphertext]) -> Ciphertext |
-list[Ciphertext]`:
+list[Ciphertext]` (an input may also be a `Plaintext` that differs between
+calls, as the JAX package passes a sharded step its checking vectors):
 
   * the first call runs `call` eagerly, which fills the evaluator's memos
     and the context's caches, then captures it on fixed input buffers
@@ -181,13 +182,19 @@ class WholeGraph:
         g = torch.cuda.CUDAGraph()
         before = [mod.launches for mod in KERNELS]
         ev.op_stats, saved = Counter(), ev.op_stats
+        # the capture synchronizes first: the eager call's device work is
+        # not the capture's time
+        torch.cuda.synchronize(gs.device)
         t0 = time.perf_counter()
         try:
             with ev.frozen() as reads, warnings.catch_warnings():
                 # a stage of metadata-only ops (a rotation by 0, SetSlots)
                 # captures no kernel: an empty graph is right there
                 warnings.filterwarnings("ignore", "The CUDA Graph is empty")
-                with torch.cuda.graph(g, pool=gs.pool, stream=gs.stream):
+                # thread_local: a call of another thread (NCCL's watchdog
+                # querying a collective's event) must not invalidate it
+                with torch.cuda.graph(g, pool=gs.pool, stream=gs.stream,
+                                      capture_error_mode="thread_local"):
                     out = self.call(list(ins))
         finally:
             self.op_counts = dict(ev.op_stats)
@@ -246,6 +253,10 @@ class StageTable(dict):
         calls this before it drops a set, so no graph keeps it alive."""
         for st in self.values():
             st._drop()
+
+    def tally(self) -> Counter:
+        """Every stage's op tally over its calls so far, summed."""
+        return sum((st.tally() for st in self.values()), Counter())
 
     def capture_seconds(self) -> float:
         return sum(st.capture_s for st in self.values())

@@ -102,6 +102,15 @@ WORK_CTS = {
     # ScanDirectSort N=128 at ring 2^17, 15.56 GiB in the warm-up: 10 keys x
     # 0.533 + 4 cts x 0.133 GiB (phase 14's sort, on its own keys)
     "direct_scan_graphs": 74,
+    # The two sharded terms on graphs were fitted to the first run of
+    # `chip_smoke.py` phase 13 on graphs, as the eager terms above were to
+    # theirs.  Sharded DirectSort N=1024 on one rank, 51.78 GiB in the
+    # warm-up (34.12 replaying): 37 keys x 0.674 + 4 cts x 0.168 GiB; its
+    # 39 graphs hold the buffers of 32 offset rotations
+    "direct_sharded_graphs": 156,
+    # sharded MEHP24 N=512 on one rank, 53.02 GiB in the warm-up: 48 keys x
+    # 0.9375 + 12 cts x 0.1875 GiB
+    "mehp24_sharded_graphs": 31,
     # -- beside a path's own term where the automorphism is the affine path's
     # (`check_phase(..., affine=True)`): the float64 intermediates of its
     # products.  The staged N=128 sort on the affine path peaked 2.38 GiB

@@ -4,6 +4,8 @@
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --path staged [--eager]
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --path hybrid
     python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --algo mehp24_staged
+    python -m fhe_sorting_tpu_torch.utils.large_sort --n 1024 --algo sharded_direct [--eager]
+    python -m fhe_sorting_tpu_torch.utils.large_sort --n 512 --algo sharded_mehp24 [--eager]
 
 DirectSort (`--algo direct`, the default) by one of three paths: `per_op`
 keys nothing up front and lets the sort's RotationComposer generate each
@@ -18,8 +20,10 @@ print the graphs' capture seconds.  Prints the card, the
 reckoned and the measured peak memory, seconds of a warm-up sort and of a
 timed one, and the max error against np.sort; exits non-zero on an error
 >= 0.01, and raises where the peak exceeds the reckoning's budget.
-`sharded_direct` and `sharded_mehp24` build the sharded sorts of
-`chip_smoke.py` phase 13.  Needs a CUDA device.
+`--algo sharded_direct` and `sharded_mehp24` run the sharded sorts of
+`chip_smoke.py` phase 13 (`sharded_direct`, `sharded_mehp24`) on a
+one-rank NCCL world over the card (`one_rank_world`), on CUDA graphs or,
+with `--eager`, eagerly.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -188,14 +192,16 @@ def sharded_plan(N: int, mesh):
     return cfg, _metered_depth(lambda ev: ShardedDirectSort(ev, N, cfg, mesh=mesh), N)
 
 
-def sharded_direct(N: int, mesh):
+def sharded_direct(N: int, mesh, graphs: bool | None = None):
     """(ctx, keys, sort, info) of the DirectSort of N values with its
     batches sharded over `mesh` (`ShardedDirectSort`) at ring 2^17, dnum 3
-    (`profile_sort`'s chain): the sharded rotation keys and the num_batch
-    offset keys, all resident."""
+    (`profile_sort`'s chain): the sharded rotation keys and the offset keys
+    of this rank's batches, all resident; its stages on CUDA graphs unless
+    `graphs` is False."""
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
     from ..parallel.direct_sharded import ShardedDirectSort, rotation_indices_sharded
+    from ..parallel.mesh import batch_sharding
     from . import hbm_budget
     from .profile_sort import RING
 
@@ -203,25 +209,29 @@ def sharded_direct(N: int, mesh):
     ctx, logqp = _context(depth, 3)
     steps = sorted(rotation_indices_sharded(N, RING))
     nb = N // min(N, (RING // 2) // N)
+    own = len(batch_sharding(mesh, nb))
     # the input, the rank, its index difference and a batch sum
-    report = hbm_budget.check_phase(ctx, len(steps) + nb, 4,
-                                    work_cts=hbm_budget.WORK_CTS["direct_sharded"],
+    report = hbm_budget.check_phase(ctx, len(steps) + own, 4,
+                                    work_cts=hbm_budget.work_cts("direct_sharded",
+                                                                 graphs is not False),
                                     label=f"sharded DirectSort N={N}")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
-    srt = ShardedDirectSort(Evaluator(ctx, keys), N, cfg, mesh=mesh)
+    srt = ShardedDirectSort(Evaluator(ctx, keys), N, cfg, mesh=mesh, graphs=graphs)
     info = dict(depth=depth, logqp=logqp, reports=[report], slots=N, phase_s={},
+                stages=srt.stages,
                 what=f"sharded DirectSort N={N} ({nb} batches over {mesh.size()} rank(s); "
-                     f"{len(steps)} rotation + {nb} offset keys)")
+                     f"{len(steps)} rotation + {own} offset keys)")
     return ctx, keys, srt, info
 
 
-def sharded_mehp24(total: int, mesh):
+def sharded_mehp24(total: int, mesh, graphs: bool | None = None):
     """(ctx, keys, sort, info) of the MEHP24 triangle of `total` values in
     256 x 256 parts split over `mesh` (`ShardedMehp24`), on the staged
     MEHP24 chain (`mehp24_plan`, dnum 4) with the keys
-    `rotation_indices_mehp24(256)` asks for.  `sort(parts)` takes the parts,
-    each holding its values in the first 256 of 256 * 256 slots."""
+    `rotation_indices_mehp24(256)` asks for; its stages on CUDA graphs
+    unless `graphs` is False.  `sort(parts)` takes the parts, each holding
+    its values in the first 256 of 256 * 256 slots."""
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
     from ..models.mehp24.utils import rotation_indices_mehp24
@@ -235,29 +245,57 @@ def sharded_mehp24(total: int, mesh):
     # +-2^15 are one galois element at ring 2^17
     n_keys = len({ctx.galois_element_rot(s) for s in steps})
     report = hbm_budget.check_phase(ctx, n_keys, 6 * k,
-                                    work_cts=hbm_budget.WORK_CTS["mehp24_sharded"],
+                                    work_cts=hbm_budget.work_cts("mehp24_sharded",
+                                                                 graphs is not False),
                                     label=f"sharded MEHP24 N={total}")
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
-    srt = ShardedMehp24(Evaluator(ctx, keys), TILE, k, *sign, mesh=mesh)
+    srt = ShardedMehp24(Evaluator(ctx, keys), TILE, k, *sign, mesh=mesh, graphs=graphs)
     info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
+                stages=srt.stages,
                 what=f"sharded MEHP24 N={total} over {k} parts of {TILE}x{TILE} "
                      f"({len(srt.pairs)} of {k * (k + 1) // 2} pairs on this rank; "
                      f"{len(keys.rot)} keys)")
     return ctx, keys, srt, info
 
 
+def one_rank_world(fn):
+    """fn(mesh) on a one-rank NCCL world over this card, its `file://`
+    store in a temporary directory (no network), the group destroyed after."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_world, make_mesh
+
+    tmp = tempfile.mkdtemp(prefix="fhe_world_")
+    init_world("nccl", 0, 1, os.path.join(tmp, "init"))
+    try:
+        return fn(make_mesh())
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1024)
     ap.add_argument("--path", choices=("per_op", "staged", "hybrid"), default="per_op")
-    ap.add_argument("--algo", choices=("direct", "mehp24_staged"), default="direct")
+    ap.add_argument("--algo", choices=("direct", "mehp24_staged", "sharded_direct",
+                                       "sharded_mehp24"), default="direct")
     ap.add_argument("--eager", action="store_true",
-                    help="run the staged sorts eagerly instead of on CUDA graphs")
+                    help="run the staged and sharded sorts eagerly instead of on CUDA graphs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("large_sort: no CUDA device")
+    if args.algo.startswith("sharded"):
+        return one_rank_world(lambda mesh: _main(args, mesh))
+    return _main(args, None)
 
+
+def _main(args, mesh) -> int:
     from . import hbm_budget
     from .profile_sort import RING, card, rotation_steps, sort_context, sorter
 
@@ -269,6 +307,10 @@ def main() -> int:
     graphs = False if args.eager else None
     if args.algo == "mehp24_staged":
         ctx, keys, sort, info = staged_mehp24(N, graphs)
+    elif args.algo == "sharded_direct":
+        ctx, keys, sort, info = sharded_direct(N, mesh, graphs)
+    elif args.algo == "sharded_mehp24":
+        ctx, keys, sort, info = sharded_mehp24(N, mesh, graphs)
     elif args.path == "hybrid":
         ctx, keys, sort, info = staged_hybrid(N, graphs)
     else:
@@ -291,15 +333,27 @@ def main() -> int:
 
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     slots = info["slots"] if info is not None else N
-    pad = np.zeros(slots)
-    pad[:N] = vals
-    ct = keys.encrypt(pad, slots=slots)
+    if args.algo == "sharded_mehp24":
+        # one part a tile, its values in the first TILE slots
+        pads = np.zeros((N // TILE, slots))
+        pads[:, :TILE] = vals.reshape(-1, TILE)
+        inp = [keys.encrypt(p, slots=slots) for p in pads]
+
+        def decrypt(out):
+            return np.concatenate([keys.decrypt(c, TILE) for c in out])
+    else:
+        pad = np.zeros(slots)
+        pad[:N] = vals
+        inp = keys.encrypt(pad, slots=slots)
+
+        def decrypt(out):
+            return keys.decrypt(out, N)
     secs, peaks = [], []
     for _ in range(2):
         torch.cuda.reset_peak_memory_stats()
         lazy0 = rot.stats.lazy_keygens if rot else 0
         t0 = time.time()
-        out = sort(ct)
+        out = sort(inp)
         torch.cuda.synchronize()
         secs.append(time.time() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
@@ -311,13 +365,14 @@ def main() -> int:
               f"{stages.graph_count()} graphs held, capture {stages.capture_seconds():.2f}s "
               f"(host seconds, in the warm-up); peak in the warm-up {peaks[0]:.2f} GiB, in the "
               f"timed sort {peaks[1]:.2f} GiB ({smi})")
-    err = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
+    err = float(np.abs(decrypt(out) - np.sort(vals)).max())
     label = f"{args.algo} {args.path}" if args.algo == "direct" else args.algo
     label += " eager" if args.eager else ""
     phases = ", ".join(f"{k} {v:.2f}s" for k, v in (info or {}).get("phase_s", {}).items())
+    level = out[0].level if isinstance(out, list) else out.level
     print(f"# {label} N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s"
           f"{f' ({phases})' if phases else ''}; max error {err:.3e}; lazy keygens in the timed "
-          f"sort {lazy}; output level {out.level}; peak device memory {peak:.2f} GiB measured, "
+          f"sort {lazy}; output level {level}; peak device memory {peak:.2f} GiB measured, "
           f"{report['used_gib']} GiB reckoned, {report['budget_gib']} GiB budget ({smi})")
     hbm_budget.check_peak(report, peak)
     return 0 if err < 0.01 else 1

@@ -1,6 +1,6 @@
 """Multi-process runs of the sharded sorts over a torch.distributed world.
 
-    python -m fhe_sorting_tpu_torch.utils.multichip --ranks 8 [--backend nccl|gloo]
+    python -m fhe_sorting_tpu_torch.utils.multichip --ranks 8 [--backend nccl|gloo] [--eager]
 
 `spawn(fn, world, args, backend)` starts `world` processes, joins them into
 one process group through a `file://` store in a fresh temporary directory
@@ -14,12 +14,13 @@ Each rank builds its own context on its own device.
 N=16 at ring 64 over num_batch=8; the same sort on a 2D (n/2 x 2) mesh
 with its limbs sharded (n >= 4); ShardedMehp24 over 4 parts of sub-length 2
 at depth 33 (fewer parts below 4 ranks).  Rank 0 prints each step's error,
-and every step asserts the 0.01 contract.
+and every step asserts the 0.01 contract.  Under "nccl" the sorts run each
+rank's stages on CUDA graphs (`--eager`: eagerly); under "gloo" eagerly.
 
 The rank functions `run_sharded_direct`, `run_sharded_mehp24` and
 `run_limb_parallel` take numpy arrays (keys and ciphertexts made
-elsewhere, for example by the JAX package) and write each rank's result to
-`{out}{rank}.npz`.
+elsewhere, for example by the JAX package) and `graphs` (as the sorts
+take it), and write each rank's result to `{out}{rank}.npz`.
 """
 
 from __future__ import annotations
@@ -86,31 +87,46 @@ def _env(params, keys_np: dict, rank: int):
 
 
 def run_sharded_direct(rank: int, world: int, params, keys_np: dict, ct_np: tuple, N: int,
-                       cfg: tuple, mesh_shape: tuple, out: str) -> None:
+                       cfg: tuple, mesh_shape: tuple, out: str, graphs: bool | None = None) -> None:
     """ShardedDirectSort of the ciphertext `ct_np` = (data, level, sdeg,
     slots) on the keys `keys_np` (`Keys.from_numpy`'s arguments, the offset
     keys among the rotation keys) over a mesh of `mesh_shape`: (world,)
-    or (n_batch, n_limb), the limbs then sharded."""
+    or (n_batch, n_limb), the limbs then sharded.  A rank takes from
+    `keys_np` only the offset keys of its own batches, as a deployment
+    hands each rank its share, and writes them (`off_kb`, `off_ka`, by
+    batch in `off_batches`) and the galois elements it holds (`held`)
+    beside its result."""
     from ..core.cipher import Ciphertext
+    from ..core.context import Context
+    from ..core.evaluator import Evaluator
+    from ..core.keys import Keys
     from ..ops.sign import CompositeSignConfig, SignConfig
     from ..parallel.direct_sharded import ShardedDirectSort
     from ..parallel.limb_parallel import LimbParallelEvaluator
-    from ..parallel.mesh import make_mesh, make_mesh_2d
+    from ..parallel.mesh import batch_sharding, make_mesh, make_mesh_2d
 
-    ctx, _, ev = _env(params, keys_np, rank)
-    if len(mesh_shape) == 1:
-        mesh = make_mesh()
-    else:
-        mesh = make_mesh_2d(*mesh_shape)
+    mesh = make_mesh() if len(mesh_shape) == 1 else make_mesh_2d(*mesh_shape)
+    ctx = Context(params, device=_device(rank))
+    P = min(N, (params.ring_n // 2) // N)
+    own = batch_sharding(mesh, N // P)
+    others = {ctx.galois_element_rot(b * P) for b in range(N // P) if b not in own}
+    keys = Keys.from_numpy(ctx, **{**keys_np, "rot": {g: k for g, k in keys_np["rot"].items()
+                                                       if g not in others}})
+    ev = Evaluator(ctx, keys)
+    if len(mesh_shape) == 2:
         ev = LimbParallelEvaluator(ev, mesh)
-    got = ShardedDirectSort(ev, N, SignConfig(CompositeSignConfig(*cfg)), mesh=mesh)(
-        Ciphertext.from_numpy(*ct_np, ctx.device))
+    srt = ShardedDirectSort(ev, N, SignConfig(CompositeSignConfig(*cfg)), mesh=mesh,
+                            graphs=graphs)
+    got = srt(Ciphertext.from_numpy(*ct_np, ctx.device))
     np.savez(f"{out}{rank}.npz", data=got.data.cpu().numpy(),
-             meta=np.array([got.level, got.sdeg, got.slots]))
+             meta=np.array([got.level, got.sdeg, got.slots]),
+             held=np.array(sorted(keys.rot)), off_batches=np.array(list(own)),
+             off_kb=np.stack([srt.off_keys[b].kb.cpu().numpy() for b in own]),
+             off_ka=np.stack([srt.off_keys[b].ka.cpu().numpy() for b in own]))
 
 
 def run_sharded_mehp24(rank: int, world: int, params, keys_np: dict, parts_np: list,
-                       sub: int, cfg: tuple, out: str) -> None:
+                       sub: int, cfg: tuple, out: str, graphs: bool | None = None) -> None:
     """ShardedMehp24 of the parts `parts_np` (each (data, level, sdeg,
     slots)) with (dg_c, df_c, dg_i, df_i) = `cfg` over the world; writes
     the sorted parts stacked."""
@@ -119,21 +135,29 @@ def run_sharded_mehp24(rank: int, world: int, params, keys_np: dict, parts_np: l
 
     ctx, _, ev = _env(params, keys_np, rank)
     parts = [Ciphertext.from_numpy(*p, ctx.device) for p in parts_np]
-    got = ShardedMehp24(ev, sub, len(parts), *cfg)(parts)
+    got = ShardedMehp24(ev, sub, len(parts), *cfg, graphs=graphs)(parts)
     np.savez(f"{out}{rank}.npz", data=np.stack([c.data.cpu().numpy() for c in got]),
              meta=np.array([got[0].level, got[0].sdeg, got[0].slots]))
 
 
 def run_limb_parallel(rank: int, world: int, params, keys_np: dict, cts_np: list,
-                      out: str) -> None:
-    """Four limb-parallel cases against the plain evaluator on the same
+                      out: str, graphs: bool | None = None) -> None:
+    """Five limb-parallel cases against the plain evaluator on the same
     ciphertexts, each written as (sharded result gathered, plain result):
     mult + rescale, rotate by 1, add (with this rank's block and whether it
-    stayed sharded), and a (world x 1) mesh's stack of ciphertexts, each
-    rank multiplying its own block of the stack."""
+    stayed sharded), a (world x 1) mesh's stack of ciphertexts, each rank
+    multiplying its own block of the stack, and mult + rescale + rotate as
+    one stage (`parallel/whole_graph.py`: a CUDA graph where `graphs`
+    allows, eager on the CPU), called twice, the second time inside the
+    evaluator's frozen section; with the stage's op tally and the plain
+    ops' count, and whether the frozen call recorded the relinearisation
+    key (an eager call does; a replay runs no op)."""
+    from collections import Counter
+
     from ..core.cipher import Ciphertext
     from ..parallel.limb_parallel import LimbParallelEvaluator, is_limb_sharded
     from ..parallel.mesh import batch_sharding, make_mesh, make_mesh_2d
+    from ..parallel.whole_graph import StageTable
 
     ctx, _, ev = _env(params, keys_np, rank)
     cts = [Ciphertext.from_numpy(*c, ctx.device) for c in cts_np]
@@ -155,12 +179,28 @@ def run_limb_parallel(rank: int, world: int, params, keys_np: dict, cts_np: list
     res["stack"] = (torch.stack([lp2.gather(lp2.mult(lp2.ingest(cts[3]), lp2.ingest(cts[3]))).data
                                  for _ in mine]),
                     torch.stack([ev.mult(cts[3], cts[3]).data for _ in mine]))
+    # the ops as a stage, its all-gathers inside it
+    table = StageTable(lp, graphs)
+
+    def limb_ops(c):
+        return lp.gather(lp.rotate(lp.rescale(lp.mult(c[0], c[0])), 1))
+
+    staged = table.run("limb", limb_ops, [lp.ingest(cts[0])])
+    with lp.frozen() as reads:          # on a CUDA context, a replay
+        again = table.run("limb", limb_ops, [lp.ingest(cts[0])])
+    before = Counter(ev.op_stats)
+    plain = ev.rotate(ev.rescale(ev.mult(cts[0], cts[0])), 1)
+    res["staged"] = (staged.data, plain.data)
+    res["staged_again"] = (again.data, plain.data)
     np.savez(f"{out}{rank}.npz", stayed_sharded=np.array(stayed),
+             stage_ops=np.array(repr(sorted(table["limb"].op_counts.items()))),
+             plain_ops=np.array(repr(sorted((ev.op_stats - before).items()))),
+             frozen_read_relin=np.array(any(r is ev.keys.relin for r in reads)),
              **{f"{k}_got": g.cpu().numpy() for k, (g, _) in res.items()},
              **{f"{k}_ref": r.cpu().numpy() for k, (_, r) in res.items()})
 
 
-def _dryrun_rank(rank: int, world: int) -> None:
+def _dryrun_rank(rank: int, world: int, graphs: bool | None = None) -> None:
     import time
 
     from ..core.context import CkksParams, Context
@@ -192,7 +232,7 @@ def _dryrun_rank(rank: int, world: int) -> None:
     # one encryption on every rank (a seeded one): the ranks hold one
     # ciphertext, as the JAX package's single controller does
     ct = keys.encrypt(vals, seed=1)
-    srt = ShardedDirectSort(ev, N, cfg, mesh=make_mesh())
+    srt = ShardedDirectSort(ev, N, cfg, mesh=make_mesh(), graphs=graphs)
     t0 = time.time()
     out = srt(ct)
     err_ds = float(np.abs(keys.decrypt(out, N) - np.sort(vals)).max())
@@ -203,7 +243,8 @@ def _dryrun_rank(rank: int, world: int) -> None:
     # 1b. the same sort on a 2D ("batch", "limb") mesh, limbs sharded
     if world >= 4:
         mesh2d = make_mesh_2d(world // 2, 2)
-        srt2 = ShardedDirectSort(LimbParallelEvaluator(ev, mesh2d), N, cfg, mesh=mesh2d)
+        srt2 = ShardedDirectSort(LimbParallelEvaluator(ev, mesh2d), N, cfg, mesh=mesh2d,
+                                 graphs=graphs)
         out2 = srt2(ct)
         err_2d = float(np.abs(keys.decrypt(out2, N) - np.sort(vals)).max())
         say(f"dryrun DirectSort N={N} on 2D mesh "
@@ -219,7 +260,7 @@ def _dryrun_rank(rank: int, world: int) -> None:
     keys2.gen_rotation_keys(sorted(rotation_indices_mehp24(sub) | {1 << i for i in range(7)}
                                    | {-(1 << i) for i in range(7)}))
     sharded = ShardedMehp24(Evaluator(ctx2, keys2), sub, n_parts, dg_c=2, df_c=2,
-                            dg_i=dg_i, df_i=df_i, mesh=make_mesh())
+                            dg_i=dg_i, df_i=df_i, mesh=make_mesh(), graphs=graphs)
     vals_all = rng.permutation(total) / total + 0.5 / total
     parts = []
     for i in range(n_parts):
@@ -237,10 +278,12 @@ def _dryrun_rank(rank: int, world: int) -> None:
         f"sorted max err {max(err_ds, err_m):.4f}", flush=True)
 
 
-def dryrun_multichip(n: int, backend: str = "nccl") -> None:
+def dryrun_multichip(n: int, backend: str = "nccl", graphs: bool | None = None) -> None:
     """The three sharded steps over `n` ranks (n in 1, 2, 4, 8: num_batch is
-    8): one GPU a rank under "nccl", the CPU under "gloo"."""
-    spawn(_dryrun_rank, n, (), backend)
+    8): one GPU a rank under "nccl", the CPU under "gloo".  The sorts run
+    on CUDA graphs under "nccl" unless `graphs` is False, eagerly on the
+    CPU."""
+    spawn(_dryrun_rank, n, (graphs,), backend)
 
 
 def main() -> int:
@@ -248,8 +291,10 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=8)
     ap.add_argument("--backend", choices=("nccl", "gloo"), default="nccl",
                     help="nccl: one GPU a rank (the default); gloo: the CPU")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the sorts eagerly on the card instead of on CUDA graphs")
     a = ap.parse_args()
-    dryrun_multichip(a.ranks, a.backend)
+    dryrun_multichip(a.ranks, a.backend, False if a.eager else None)
     return 0
 
 

@@ -6,7 +6,9 @@ planes split over a two-rank "limb" axis (ranks spawned through
 and rotate are bit-equal to the plain evaluator and to the JAX package's
 evaluator on the same (JAX) keys and ciphertexts; a limb-local add leaves
 its output sharded, each rank holding its own block; and a stack of
-ciphertexts over a (2 x 1) ("batch", "limb") mesh multiplies correctly."""
+ciphertexts over a (2 x 1) ("batch", "limb") mesh multiplies correctly;
+and the limb-parallel ops run as a stage (`parallel/whole_graph.py`), their
+all-gathers inside it, as the sharded sorts run them."""
 
 import numpy as np
 import pytest
@@ -47,7 +49,8 @@ def runs(tmp_path_factory):
     ref = {"mult_rescale": jev.rescale(jev.mult(jcts[0], jcts[0])),
            "rotate": jev.rotate(jcts[1], 1),
            "add": jev.add(jcts[2], jcts[2]),
-           "stack": jev.mult(jcts[3], jcts[3])}
+           "stack": jev.mult(jcts[3], jcts[3]),
+           "staged": jev.rotate(jev.rescale(jev.mult(jcts[0], jcts[0])), 1)}
     return ranks, {k: np.asarray(v.data).astype(np.int64) for k, v in ref.items()}, jctx
 
 
@@ -81,3 +84,18 @@ def test_batch_by_limb_2d_mesh(runs):
         np.testing.assert_array_equal(r["stack_got"], r["stack_ref"])
         for got in r["stack_got"]:
             np.testing.assert_array_equal(got, ref["stack"])
+
+
+def test_limb_ops_as_a_stage(runs):
+    """mult + rescale + rotate on limb-sharded operands as one stage (the
+    all-gathers inside it; eager on the CPU): bit-equal to the plain
+    evaluator at both calls, the second inside the evaluator's frozen
+    section, which records the reads of the gathered ops too; the stage's
+    op tally is the plain ops' count."""
+    ranks, ref, _ = runs
+    for r in ranks:
+        for case in ("staged", "staged_again"):
+            np.testing.assert_array_equal(r[f"{case}_got"], r[f"{case}_ref"])
+        np.testing.assert_array_equal(r["staged_got"], ref["staged"])
+        assert str(r["stage_ops"]) == str(r["plain_ops"]) and "rot" in str(r["stage_ops"])
+        assert bool(r["frozen_read_relin"])

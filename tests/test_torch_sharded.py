@@ -6,19 +6,28 @@ ciphertexts.  The port runs in-process over a one-rank gloo world and in
 two gloo ranks spawned through `utils.multichip.spawn` (a `file://` store,
 no network).
 
-Tier-1: the key sets and offset keys match; the per-batch building blocks
+Tier-1: the key sets and offset keys match, and a rank that keeps some
+offset keys gets them bit-equal to a rank that keeps all (two batch ranks
+hold only their own, the JAX package's keys of their offsets); the
+per-batch building blocks
 of the sharded DirectSort (the offset rotation with the identity-galois
 key, and one batch's masked-rotation sum) and of the sharded MEHP24 (the
 replicate/transpose ladders, a pair's difference and the uniform rank fold)
 are bit-equal to the JAX package's evaluator ops; and the port's sharded
 sorts at two ranks (and on a 1 x 2 mesh with the limbs sharded) give the
-limb planes of its one-rank run, decrypting within 0.01.
+limb planes of its one-rank run, decrypting within 0.01.  Both sharded
+sorts run as stages (eager on the CPU): a second sort, inside the
+evaluator's frozen section, gives the first sort's planes, the ranks'
+agreement on the summed metadata is gathered at the first sort only, and
+the stages' tallies (`phase_stats`) equal the ops the same program issues
+run op by op.
 
 Under `slow`: the whole sorts bit-equal to the JAX package's
 `ShardedDirectSort` and `ShardedMehp24` on a one-device mesh, which are one
 jitted program each and take minutes to compile on the CPU."""
 
 import types
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +156,31 @@ def test_gen_offset_keys_identity_key_switches_to_s():
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("keeps", [[[0, 1]], [[2, 3]], [[3]], [[0, 1], [1, 2, 3]]],
+                         ids=["first", "last", "one", "after_another"])
+def test_gen_offset_keys_keeps_only_its_own(keeps, monkeypatch):
+    """A rank that keeps some offset keys holds those alone and makes no
+    other, each bit-equal to the key a rank that keeps all draws: the i-th
+    key is the stream's i-th draw, also where earlier keys are held."""
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=4), device="cpu")
+    offsets = [0, 4, 8, 12]
+    ref = tds.gen_offset_keys(Keys.generate(ctx, seed=0), offsets)
+    keys = Keys.generate(ctx, seed=0)
+    held, made = set(keys.rot), []
+    gen = Keys._gen_ksk
+    monkeypatch.setattr(Keys, "_gen_ksk", lambda self, *a: made.append(1) or gen(self, *a))
+    for keep in keeps:
+        got = tds.gen_offset_keys(keys, offsets, keep=keep)
+        for i, k in enumerate(got):
+            if i in keep:
+                assert torch.equal(k.kb, ref[i].kb) and torch.equal(k.ka, ref[i].ka)
+            else:
+                assert k is None
+    kept = set().union(*keeps)
+    assert set(keys.rot) - held == {ctx.galois_element_rot(offsets[i]) for i in kept}
+    assert len(made) == len(kept)
+
+
 @pytest.mark.parametrize("b", [0, 1])
 def test_offset_rotation_and_masked_sum_match_jax(direct_env, world, b):
     """Batch b's offset rotation (b=0: the identity-galois key) and its
@@ -166,7 +200,7 @@ def test_offset_rotation_and_masked_sum_match_jax(direct_env, world, b):
     srt = tds.ShardedDirectSort(ev, N, SignConfig(CompositeSignConfig(*CFG)), mesh=world)
     inp = Ciphertext.from_numpy(*_ct_np(e.jct), "cpu").set_slots(num_slots)
     u = ev.rotate_with_key(inp, b * e.P, srt.off_keys[b])
-    shifted = srt._shifted(inp, b)
+    shifted = srt._masked_sum(u)
     for got, ref in ((u, ju), (shifted, jshifted)):
         assert (got.level, got.sdeg, got.slots) == (ref.level, ref.sdeg, ref.slots)
         np.testing.assert_array_equal(got.data.numpy(), np.asarray(ref.data).astype(np.int64))
@@ -180,6 +214,108 @@ def test_sharded_direct_sort_ranks_equal_one_rank(direct_env, direct_outs, shape
         np.testing.assert_array_equal(r["data"], one.data.numpy())
     err = np.abs(keys.decrypt(one, N) - np.sort(direct_env.vals)).max()
     assert err < 0.01
+
+
+def test_batch_ranks_hold_only_their_offset_keys(direct_env, direct_outs):
+    """At two batch ranks each holds the JAX package's offset key of its own
+    batch and no other; on the 1 x 2 mesh both limb ranks hold both."""
+    e = direct_env
+    _, _, runs = direct_outs
+    rot = {e.jctx.galois_element_rot(r) for r in tds.rotation_indices_sharded(N, RING)}
+    g_off = [e.jctx.galois_element_rot(r) for r in e.offsets]
+    for shape, mine in (((2,), lambda rank: [rank]), ((1, 2), lambda rank: [0, 1])):
+        for rank, r in enumerate(runs[shape]):
+            assert list(r["off_batches"]) == mine(rank)
+            assert set(r["held"]) == rot | {g_off[b] for b in mine(rank)}
+            for i, b in enumerate(mine(rank)):
+                np.testing.assert_array_equal(r["off_kb"][i], np.asarray(e.joff[b].kb).astype(np.int64))
+                np.testing.assert_array_equal(r["off_ka"][i], np.asarray(e.joff[b].ka).astype(np.int64))
+
+
+def _stage_runs(make, run, ev):
+    """Two sorts of the staged object `make()` (the second inside the
+    evaluator's frozen section) counting `all_gather_object` calls, then
+    the same program op by op on a second object, its ops tallied by phase
+    (`phase_of(stage name)`): (first, second, gathers after each sort,
+    op-by-op output, its tally by phase, the staged object)."""
+    gathers = []
+    real = dist.all_gather_object
+
+    def counting(*a, **k):
+        gathers.append(1)
+        return real(*a, **k)
+
+    srt = make()
+    dist.all_gather_object = counting
+    try:
+        first = run(srt)
+        after_first = len(gathers)
+        with ev.frozen():
+            second = run(srt)
+    finally:
+        dist.all_gather_object = real
+    plain = make()
+    by_phase = {ph: Counter() for ph in srt.phase_stats()}
+
+    def op_by_op(name, fn, cts):
+        ev.op_stats = Counter()
+        out = fn(cts)
+        by_phase[srt.phase_of(name)] += ev.op_stats
+        return out
+
+    plain._run = op_by_op
+    out = run(plain)
+    return first, second, (after_first, len(gathers)), out, by_phase, srt
+
+
+@pytest.fixture(scope="module")
+def direct_stages(direct_env, world):
+    e = direct_env
+    _, _, ev = _port(e.params, e.jkeys)
+    ct = Ciphertext.from_numpy(*_ct_np(e.jct), "cpu")
+    return _stage_runs(
+        lambda: tds.ShardedDirectSort(ev, N, SignConfig(CompositeSignConfig(*CFG)), mesh=world),
+        lambda srt: [srt(ct)], ev)
+
+
+@pytest.fixture(scope="module")
+def mehp_stages(mehp_env, world):
+    e = mehp_env
+    _, _, ev = _port(e.params, e.jkeys)
+    parts = [Ciphertext.from_numpy(*_ct_np(p), "cpu") for p in e.jparts]
+    return _stage_runs(lambda: ShardedMehp24(ev, SUB, PARTS, *e.cfg, mesh=world),
+                       lambda srt: srt(parts), ev)
+
+
+@pytest.mark.parametrize("kind", ["direct", "mehp"])
+def test_second_sharded_sort_runs_frozen(kind, request):
+    """Every stage of a second sort can be captured (it uploads, makes and
+    frees nothing), and gives the first sort's planes and the op-by-op
+    program's."""
+    first, second, _, out, _, srt = request.getfixturevalue(f"{kind}_stages")
+    for a, b, c in zip(first, second, out):
+        assert torch.equal(a.data, b.data) and torch.equal(a.data, c.data)
+    assert not srt.stages.graphs and not srt.ev.ctx.frozen
+
+
+@pytest.mark.parametrize("kind", ["direct", "mehp"])
+def test_agreement_gathered_once_per_sort_object(kind, request):
+    """The host round trip that checks the ranks' metadata runs at the
+    first sort's two merge points, and at no later sort."""
+    _, _, gathers, _, _, _ = request.getfixturevalue(f"{kind}_stages")
+    assert gathers == (2, 2)
+
+
+@pytest.mark.parametrize("kind", ["direct", "mehp"])
+def test_sharded_phase_stats_equal_op_counts(kind, request):
+    """Each phase's stage tallies (per-dispatch tally times calls) over two
+    sorts are twice the ops the same program issues run op by op."""
+    _, _, _, _, by_phase, srt = request.getfixturevalue(f"{kind}_stages")
+    stats = srt.phase_stats()
+    assert set(stats) == set(by_phase) and all(by_phase.values())
+    for phase, counts in by_phase.items():
+        assert stats[phase] == counts + counts, phase
+    assert srt.stage_stats() == sum(stats.values(), Counter())
 
 
 @pytest.mark.slow

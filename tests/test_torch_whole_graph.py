@@ -198,39 +198,102 @@ def test_graph_replays_k1_and_k2_on_card():
         assert torch.equal(o2, want2) and torch.equal(o1, want1)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind,n,ring,sign", [
-    ("staged", 8, 512, (3, 2, 2)), ("scan", 8, 512, (3, 2, 2)), ("scan", 16, 64, (3, 3, 2))])
-def test_sorts_on_graphs_equal_eager_on_card(kind, n, ring, sign):
-    """The staged and scan sorts on graphs against the same sorts run
-    eagerly on the card: equal planes on two inputs, and the replays' K2
-    tallies equal to the eager launches."""
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL world over the card, for the sharded sorts."""
     _card()
-    from fhe_sorting_tpu_torch.core import bf_ntt
-    from fhe_sorting_tpu_torch.parallel.direct_scan import ScanDirectSort
+    import torch.distributed as dist
 
-    cls = StagedDirectSort if kind == "staged" else ScanDirectSort
+    from fhe_sorting_tpu_torch.parallel.mesh import init_world, make_mesh
+
+    init_world("nccl", 0, 1, str(tmp_path_factory.mktemp("world") / "init"))
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def _card_sort(kind, n, ring, sign, request):
+    """(make(graphs), encrypt(vals, seed), decrypt(out, ...)) of one sort
+    kind on a butterfly context on the card: `make(False)` runs eagerly,
+    `make(None)` on graphs."""
+    from fhe_sorting_tpu_torch.models.mehp24.utils import rotation_indices_mehp24
+    from fhe_sorting_tpu_torch.parallel.direct_scan import ScanDirectSort
+    from fhe_sorting_tpu_torch.parallel.direct_sharded import (
+        ShardedDirectSort, rotation_indices_sharded)
+    from fhe_sorting_tpu_torch.parallel.mehp24_sharded import ShardedMehp24
+
+    if kind == "sharded_mehp24":
+        ctx = Context(CkksParams(ring_n=ring, mult_depth=33, ntt_impl="butterfly"))
+        keys = Keys.generate(ctx, seed=0)
+        keys.gen_rotation_keys(sorted(rotation_indices_mehp24(2) | {1 << i for i in range(7)}
+                                      | {-(1 << i) for i in range(7)}))
+        mesh, ev = request.getfixturevalue("nccl_mesh"), Evaluator(ctx, keys)
+        parts = n // 2
+
+        def encrypt(vals, seed):
+            out = []
+            for i in range(parts):
+                v = np.zeros(4)
+                v[:2] = vals[2 * i:2 * i + 2]
+                out.append(keys.encrypt(v, slots=4, seed=seed + i))
+            return out
+
+        return (lambda graphs: ShardedMehp24(ev, 2, parts, *sign, mesh=mesh, graphs=graphs),
+                encrypt, lambda out: np.concatenate([keys.decrypt(c, 2) for c in out]))
     cfg = SignConfig(CompositeSignConfig(*sign))
     depth = measure_direct_sort_depth(n, ring, cfg)["mult_depth"] + 1
     ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, ntt_impl="butterfly"))
     keys = Keys.generate(ctx, seed=0)
-    keys.gen_rotation_keys(sorted(scan_rotation_indices(n, ring)))
     ev = Evaluator(ctx, keys)
-    eager, graphs = cls(ev, n, cfg, graphs=False), cls(ev, n, cfg)
+    if kind == "sharded_direct":
+        keys.gen_rotation_keys(sorted(rotation_indices_sharded(n, ring)))
+        mesh = request.getfixturevalue("nccl_mesh")
+
+        def make(graphs):
+            return ShardedDirectSort(ev, n, cfg, mesh=mesh, graphs=graphs)
+    else:
+        keys.gen_rotation_keys(sorted(scan_rotation_indices(n, ring)))
+        cls = StagedDirectSort if kind == "staged" else ScanDirectSort
+
+        def make(graphs):
+            return cls(ev, n, cfg, graphs=graphs)
+    return make, lambda vals, seed: keys.encrypt(vals, seed=seed), \
+        lambda out: keys.decrypt(out, n)
+
+
+def _planes(out):
+    return torch.stack([c.data for c in out]) if isinstance(out, list) else out.data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n,ring,sign", [
+    ("staged", 8, 512, (3, 2, 2)), ("scan", 8, 512, (3, 2, 2)), ("scan", 16, 64, (3, 3, 2)),
+    ("sharded_direct", 16, 64, (3, 3, 2)), ("sharded_mehp24", 4, 64, (2, 2, 2, 2))])
+def test_sorts_on_graphs_equal_eager_on_card(kind, n, ring, sign, request):
+    """The staged, scan and sharded sorts on graphs against the same sorts
+    run eagerly on the card: equal planes on two inputs, and the replays'
+    K2 tallies equal to the eager launches (the sharded sorts on a one-rank
+    NCCL world, their all-reduces between the graphs)."""
+    _card()
+    from fhe_sorting_tpu_torch.core import bf_ntt
+
+    make, encrypt, decrypt = _card_sort(kind, n, ring, sign, request)
+    eager, graphs = make(False), make(None)
     rng = np.random.default_rng(5)
-    graphs(keys.encrypt(rng.permutation(n) / n, seed=1))          # eager runs and captures
+    graphs(encrypt(rng.permutation(n) / n, 1))          # eager runs and captures
+    if kind != "scan":
+        assert graphs.stages.graph_count() == len(graphs.stages) > 0
     for seed in (2, 3):
         vals = rng.permutation(n) / n + 0.5 / n
-        ct = keys.encrypt(vals, seed=seed)
+        ct = encrypt(vals, seed)
         before = bf_ntt.launches
         want = eager(ct)
         torch.cuda.synchronize()
         mid = bf_ntt.launches
         got = graphs(ct)
         torch.cuda.synchronize()
-        assert torch.equal(got.data, want.data)
+        assert torch.equal(_planes(got), _planes(want))
         assert bf_ntt.launches - mid == mid - before > 0
-        assert float(np.abs(keys.decrypt(got, n) - np.sort(vals)).max()) < 0.01
+        assert float(np.abs(decrypt(got) - np.sort(vals)).max()) < 0.01
 
 
 @pytest.mark.cuda
