@@ -85,8 +85,20 @@ Phases (each failure raises, and the script exits non-zero):
      all-reduces between them), a warm-up and a counted sort each way:
      output planes equal, K2 launches equal, max error < 0.01; between them
      a limb-parallel mult + rescale + rotate on a (1 x 1) mesh, eagerly and
-     as a captured stage with its NCCL all-gathers inside, replayed on a new
-     input, bit-equal to the plain evaluator.
+     as a captured stage with its NCCL all-gather and broadcasts inside,
+     replayed on a new input, bit-equal to the plain evaluator;
+ 17. (after phase 13) limb parallelism that splits the work: the sharded
+     DirectSort N=128 on the bench's chain (ring 2^17, comp=2, depth 32,
+     Lq 68, K 23, dnum 3, butterfly NTT) on a (1 x 2) mesh of two gloo
+     processes that share this card (NCCL refuses two ranks on one GPU),
+     eagerly, and the same sort on a (1 x 1) mesh, each rank making its rows
+     of one key set from seed 0 and encrypting one input from seed 1
+     (`utils.multichip.run_limb_sort`): gathered output planes equal to
+     the one rank's, max error < 0.01, K2 launched on each rank and K1 not,
+     each rank's key bytes and the limb planes its key switches and
+     rescales transform at most 0.55 of the one rank's; prints each rank's
+     sort seconds, the bytes gathered and broadcast a sort, the plaintext
+     encodes' planes apart, and each rank's peak beside its reckoning.
  16. (last) the entry points of the system's own measurements, each as a
      user runs it: `python -m fhe_sorting_tpu_torch.utils.bench --n 128
      --trials 1` as a subprocess (the staged N=128 sort on K1 and graphs:
@@ -97,8 +109,9 @@ Phases (each failure raises, and the script exits non-zero):
      rotation and a multiplication on K1); `utils/run_bootstrap.py` at its
      defaults (ring 2^14, sparse secret, level budget 3, on K1), max error
      < 1e-2.
-Phases 7-14 run butterfly contexts: each must launch K2 and never K1, with
-the counts set to 0 just before and read just after.  Every phase from 5 on
+Phases 7-14 and 17 run butterfly contexts: each must launch K2 and never
+K1, with the counts set to 0 just before and read just after (in phase 17
+by each rank's process).  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
 budget.
@@ -238,15 +251,19 @@ def _run_sort(label, keys, ct, vals, sort, phase1, phase2, counters, smi, report
     return counts, total, (t1 - t0, t2 - t1), out, (warm_s, warm_peak, peak)
 
 
-def _check_memory(label, report, peak_gib, smi):
+def _check_memory(label, report, peak_gib, smi, outside_gib=0.0):
     """Print a phase's measured peak beside what `check_phase` reckoned, and
-    fail where it exceeds the budget the reckoning was made against."""
+    fail where it exceeds the budget the reckoning was made against, or
+    where the peak less `outside_gib` (allocated before the phase and not
+    its own) exceeds the reckoning."""
     from fhe_sorting_tpu_torch.utils import hbm_budget
 
-    print(f"# {label}: peak device memory {peak_gib:.2f} GiB measured, {report['used_gib']} GiB "
+    card = (f", {report['used_gib']} GiB for the {report['limb_ranks']} ranks on the card"
+            if report["limb_ranks"] > 1 else "")
+    print(f"# {label}: peak device memory {peak_gib:.2f} GiB measured, {report['rank_gib']} GiB "
           f"reckoned ({report['n_rot_keys']} rotation keys + relin, {report['n_cts']} + "
-          f"{report['work_cts']} ciphertexts), budget {report['budget_gib']} GiB ({smi})")
-    hbm_budget.check_peak(report, peak_gib)
+          f"{report['work_cts']} ciphertexts{card}), budget {report['budget_gib']} GiB ({smi})")
+    hbm_budget.check_peak(report, peak_gib, outside_gib)
 
 
 def _release():
@@ -693,8 +710,9 @@ def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
     and a counted one, the counted outputs bit-equal, each against the
     budget its memory was reckoned with; and a limb-parallel mult + rescale
     + rotate on a (1 x 1) mesh, eagerly and as a captured stage with its
-    all-gathers inside, bit-equal to the plain evaluator.  Returns the K2
-    launches of the counted sorts and ops."""
+    collectives (the key switch's all-gathers, the rescale's broadcasts)
+    inside, bit-equal to the plain evaluator.  Returns the K2 launches of
+    the counted sorts and ops."""
     from fhe_sorting_tpu_torch.utils import large_sort
 
     return large_sort.one_rank_world(
@@ -774,9 +792,10 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
         raise AssertionError(f"sharded DirectSort: sort error {err} >= 0.01")
 
-    # -- limb parallelism on a (1 x 1) mesh, through the NCCL all-gathers:
-    # eagerly, then as one stage on graphs, the gathers captured with it;
-    # its second call, a replay, on a new input shows the replay gathers
+    # -- limb parallelism on a (1 x 1) mesh, through the NCCL all-gathers and
+    # broadcasts of the distributed key switch and rescale: eagerly, then as
+    # one stage on graphs, the collectives captured with it; its second call,
+    # a replay, on a new input shows the replay runs them
     ev = srt.ev
     lp = LimbParallelEvaluator(ev, make_mesh_2d(1, 1))
     table = StageTable(lp)
@@ -795,7 +814,8 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     if not table.graphs or table.graph_count() != 1 or table["limb"].calls != 2:
         raise AssertionError("limb-parallel: the stage did not run on a captured graph")
     print(f"# limb-parallel mult + rescale + rotate on a (1 x 1) NCCL mesh, ring 2^17: eager "
-          f"{limb_s:.3f}s, a replay of its graph (all-gathers captured) {graph_s:.3f}s on a new "
+          f"{limb_s:.3f}s, a replay of its graph (all-gathers and broadcasts captured) "
+          f"{graph_s:.3f}s on a new "
           f"input, each bit-equal to the plain evaluator; capture {table.capture_seconds():.2f}s "
           f"({smi})")
     k2 += _require_k2_only("limb-parallel eager", counts_e)
@@ -840,6 +860,69 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     return k2 + k2_m
 
 
+def _phase17_limb_sort(counters, smi, n=N, ranks=2):
+    """The sharded DirectSort of n values on a (1 x 1) and a (1 x `ranks`)
+    mesh of gloo processes on this card, eagerly, the limbs and the key
+    rows split over the limb ranks (`utils.multichip.run_limb_sort`; the
+    module docstring, phase 17); gloo moves the CUDA tensors through host
+    memory.  Returns the K2 launches of every rank's sort."""
+    from fhe_sorting_tpu_torch.utils import hbm_budget, multichip
+
+    tmp = tempfile.mkdtemp(prefix="fhe_limb_")
+    res = {}
+    try:
+        for world in (1, ranks):
+            t0 = time.time()
+            out = os.path.join(tmp, f"w{world}_")
+            multichip.spawn(multichip.run_limb_sort, world, (n, out),
+                            backend="gloo", device="cuda:0")
+            res[world] = [dict(np.load(f"{out}{r}.npz")) for r in range(world)]
+            r0 = res[world][0]
+            print(f"# limb-parallel sharded DirectSort N={n} on (1 x {world}), {world} gloo "
+                  f"process(es) on this card: ring 2^17, depth "
+                  f"{int(r0['depth'])}, Lq={int(r0['num_q'])}, K={int(r0['num_sp'])}; "
+                  f"{time.time() - t0:.1f}s with the processes' start ({smi})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    one = res[1][0]
+    k2 = 0
+    for world, rs in res.items():
+        for rank, r in enumerate(rs):
+            label = f"limb-parallel N={n} (1 x {world}) rank {rank}"
+            report = json.loads(str(r["report"]))
+            fs, bf = (int(x) for x in r["launches"])
+            ks = [int(x) for x in r["ks_planes"]]
+            print(f"# {label}: setup {float(r['setup_s']):.2f}s, sort {float(r['sort_s']):.3f}s "
+                  f"(the first: its plaintexts encoded on the way); K2 launches {bf}, K1 {fs}; "
+                  f"keys {int(r['n_keys'])} x its rows = {int(r['key_bytes']) / 2**30:.3f} GiB; "
+                  f"NTT/INTT planes in ModUp, ModDown, rescale {ks} = {sum(ks)}, in plaintext "
+                  f"encodes {int(r['pt_planes'])}; gathered {int(r['gathered']) * 8 / 2**20:.1f} "
+                  f"MiB, broadcast {int(r['broadcast']) * 8 / 2**20:.1f} MiB in "
+                  f"{int(r['collectives'])} collectives ({smi})")
+            _check_memory(label, report, float(r["peak_gib"]), smi)
+            if bf <= 0 or fs != 0:
+                raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
+            k2 += bf
+            if not (np.array_equal(r["data"], one["data"])
+                    and tuple(r["meta"]) == tuple(one["meta"])):
+                raise AssertionError(f"{label}: the gathered output differs from one rank's")
+            if world > 1:
+                key_share = int(r["key_bytes"]) / int(one["key_bytes"])
+                plane_share = sum(ks) / int(one["ks_planes"].sum())
+                print(f"# {label}: {key_share:.3f} of one rank's key bytes, {plane_share:.3f} of "
+                      f"its key-switch and rescale planes, {float(r['sort_s']) / float(one['sort_s']):.2f} "
+                      f"times its sort seconds")
+                if key_share > 0.55 or plane_share > 0.55:
+                    raise AssertionError(f"{label}: holds {key_share:.3f} of the keys and "
+                                         f"transforms {plane_share:.3f} of the planes (> 0.55)")
+        err = float(rs[0]["err"])
+        print(f"# limb-parallel N={n} (1 x {world}): output planes equal to one rank's, level "
+              f"{int(rs[0]['meta'][0])}; max sort error {err:.3e} ({smi})")
+        if not err < 0.01:
+            raise AssertionError(f"limb-parallel N={n} (1 x {world}): sort error {err} >= 0.01")
+    return k2
+
+
 def _phase14_scan(ctx2, counters, smi):
     """ScanDirectSort eagerly and on graphs: N=128 at ring 2^17 on the per-op
     path's butterfly context (one batch), and N=64 at ring 2^12 (two
@@ -847,7 +930,11 @@ def _phase14_scan(ctx2, counters, smi):
     runs a warm-up (eager runs and captures, filling the plaintext memo),
     then the eager sort and a sort of replays run, each counted, so both
     find the memo warm; returns the replays' K2 launches, summed over both
-    rings."""
+    rings.  Each peak is held to the budget whole; the ring-2^12 sort's,
+    less what was allocated before its context was made (the ring-2^17
+    context and what else other phases still hold, far more than its own
+    sort needs), to its reckoning, which counts the path's fixed cost
+    (`hbm_budget.FIXED_MIB`)."""
     from fhe_sorting_tpu_torch.core.context import CkksParams, Context
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
@@ -860,9 +947,11 @@ def _phase14_scan(ctx2, counters, smi):
     k2 = 0
     for n, ring in ((N, RING), (64, 1 << 12)):
         cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(n)))
+        outside = 0.0
         if ring == RING:
             ctx = ctx2
         else:
+            outside = torch.cuda.memory_allocated() / 2**30
             depth = measure_direct_sort_depth(n, ring, cfg)["mult_depth"]
             ctx = Context(CkksParams(ring_n=ring, mult_depth=depth, scale_bits=56, comp=2,
                                      base_limbs=4, ntt_impl="butterfly"))
@@ -870,6 +959,7 @@ def _phase14_scan(ctx2, counters, smi):
         kset.gen_rotation_keys(sorted(scan_rotation_indices(n, ring)))
         report = hbm_budget.check_phase(ctx, len(kset.rot), 4,
                                         work_cts=hbm_budget.WORK_CTS["direct_scan_graphs"],
+                                        fixed_mib=hbm_budget.FIXED_MIB["direct_scan_graphs"],
                                         label=f"scan N={n}")
         ev = Evaluator(ctx, kset)
         held = torch.cuda.memory_allocated() / 2**30
@@ -894,8 +984,8 @@ def _phase14_scan(ctx2, counters, smi):
               f"{sum(g[1] for g in graphs.values()):.2f}s), replayed {secs:.3f}s; dispatches "
               f"{ {k: g[0] for k, g in graphs.items()} }; max sort error {err:.3e}; peak "
               f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB replaying, of which {held:.2f} "
-              f"GiB were held before the sort ({smi})")
-        _check_memory(f"scan N={n}", report, max(warm_peak, peak), smi)
+              f"GiB were held before the sort, {outside:.2f} GiB of it before its context ({smi})")
+        _check_memory(f"scan N={n}", report, max(warm_peak, peak), smi, outside)
         if not torch.equal(out.data, out_e.data):
             raise AssertionError(f"scan N={n}: the sort on graphs differs from the eager sort")
         if counts != counts_e:
@@ -1380,7 +1470,8 @@ def main() -> int:
     for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
                         ("mehp24", _phase10_mehp24), ("characterizer", _characterizer_line),
                         ("k-way", _phase11_kway), ("staged N>256 regimes", _phase12_staged_large),
-                        ("sharded sorts", _phase13_sharded)):
+                        ("sharded sorts", _phase13_sharded),
+                        ("limb-parallel sort", _phase17_limb_sort)):
         by_phase[name] = phase(counters, smi)
         _release()
     # -- phase 16: the entry points of the system's own measurements --------

@@ -10,8 +10,14 @@ the same parameters.  Differences:
   * key-switch plans hold the CRT base-extension factors as residues
     (`ntt_mxu.mod_matmul` splits them itself) rather than s8 digit planes;
   * limb subsets are int64 index tensors into the full-chain tables
-    (`limbs_range`, `target_limbs`), cached per level, so no table is
-    sliced or concatenated per call;
+    (`limbs_range`, `target_limbs`, `limb_set`), cached per level, so no
+    table is sliced or concatenated per call;
+  * the rows a key switch or a rescale computes, with their plans'
+    tables restricted to them (`ks_rows`, `rescale_rows`): the rows of
+    one of `parts` ranks of a limb axis by the cyclic rule (`cyclic`), so
+    every row for the plain evaluator (one part) and one limb rank's own
+    for the limb-parallel one (`parallel/mesh.LimbLayout`), cached per
+    level;
   * `ntt_impl="auto"` picks the four-step NTT with the CUDA kernel K1 when
     the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
     butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
@@ -184,6 +190,51 @@ class KeySwitchPlan:
     p_inv_mod_qi: torch.Tensor   # [Ll, 1]
 
 
+@dataclass(frozen=True)
+class KeySwitchRows:
+    """The rows of one level's key switch that an evaluator computes, and
+    the key-switch plan's tables restricted to them (`Context.ks_rows`):
+    "active" rows are Q limbs below the level's top, "special" rows the
+    special primes, the "target" the two together (the extended basis)."""
+
+    active: torch.Tensor         # global limb indices (the NTT's `limbs`)
+    special: torch.Tensor
+    target: torch.Tensor         # active then special
+    p_active: torch.Tensor       # [a, 1]
+    p_special: torch.Tensor      # [s, 1]
+    p_target: torch.Tensor       # [a+s, 1]
+    dhat_inv: torch.Tensor       # [a, 1]
+    dig_ext: tuple               # per digit [a+s, len(digit)] CRT factors
+    phat_inv: torch.Tensor       # [s, 1]
+    pext: torch.Tensor           # [a, K] P-hat residues mod the active rows
+    p_inv_mod_qi: torch.Tensor   # [a, 1]
+    n_active: int                # a
+    key_special: int             # first special row of a key holding these rows
+
+
+@dataclass(frozen=True)
+class RescaleRows:
+    """The rows one dropped limb's rescale computes (`Context.rescale_rows`):
+    the kept rows, their primes and the rescale plan's factors."""
+
+    limbs: torch.Tensor          # global limb indices of the kept rows
+    p: torch.Tensor              # [r, 1]
+    qlast_mod_qi: torch.Tensor   # [r, 1]
+    qlast_inv: torch.Tensor      # [r, 1]
+    qlast_half: int
+
+
+def cyclic(length: int, parts: int, index: int) -> range:
+    """The `index`-th of `parts` interleaved shares of range(length), its
+    elements i with i mod parts == index (the split of a limb axis)."""
+    return range(index, length, parts)
+
+
+def _rows(r: range) -> slice:
+    """The rows of a range as a slice (a view of the tables it indexes)."""
+    return slice(r.start, r.stop, r.step)
+
+
 class Context:
     """Parameters, prime chain and device tables of one CKKS instance."""
 
@@ -228,6 +279,7 @@ class Context:
         self.pc = PrimeConsts(self.tensor(np.asarray(self.all_primes)[:, None]))
 
         self._limb_cache = {}
+        self._rows_cache = {}
         self.rescale_plans = [self._build_rescale_plan(d)
                               for d in range(params.comp * params.mult_depth)]
         self.ks_plans = [self._build_ks_plan(l) for l in range(params.mult_depth + 1)]
@@ -279,6 +331,18 @@ class Context:
                 [self.active_limbs(level), self.special_limbs()])
         return self._limb_cache[key]
 
+    def limb_set(self, rows: range) -> torch.Tensor:
+        """The global limb indices of `rows` (a range) as a cached device
+        tensor."""
+        if rows.step == 1:
+            return self.limbs_range(rows.start, rows.stop)
+        key = (rows.start, rows.stop, rows.step)
+        if key not in self._limb_cache:
+            self.thawed(f"a new limb index set {key}")
+            self._limb_cache[key] = torch.tensor(list(rows), dtype=torch.int64,
+                                                 device=self.device)
+        return self._limb_cache[key]
+
     def p_active(self, level: int) -> torch.Tensor:
         return self.pc.p[: self.limbs_at(level)]
 
@@ -307,6 +371,49 @@ class Context:
 
     def limbs_at(self, level: int) -> int:
         return self.num_q - self.params.comp * level
+
+    # -- the rows an evaluator computes ---------------------------------------
+
+    def ks_rows(self, level: int, parts: int = 1, index: int = 0) -> KeySwitchRows:
+        """The key switch's rows at `level` that rank `index` of a limb axis
+        of `parts` ranks computes: its active Q limbs and its special primes
+        (`cyclic`; every row at one part).  Cached."""
+        key = ("ks", level, parts, index)
+        hit = self._rows_cache.get(key)
+        if hit is not None:
+            return hit
+        self.thawed(f"new key-switch rows at level {level}")
+        plan, Ll, nq = self.ks_plans[level], self.limbs_at(level), self.num_q
+        q, sp = cyclic(Ll, parts, index), cyclic(self.num_sp, parts, index)
+        rq, rs = _rows(q), _rows(sp)
+        active = self.limb_set(q)
+        special = self.limb_set(range(nq + sp.start, nq + sp.stop, sp.step))
+        own = torch.tensor([*q, *(Ll + j for j in sp)], dtype=torch.int64, device=self.device)
+        target = torch.cat([active, special])
+        hit = self._rows_cache[key] = KeySwitchRows(
+            active=active, special=special, target=target, p_active=self.pc.p[rq],
+            p_special=self.pc.p[nq:][rs], p_target=self.pc.p[target],
+            dhat_inv=plan.dhat_inv[rq], dig_ext=tuple(fac[own] for fac in plan.dig_ext),
+            phat_inv=plan.phat_inv[rs], pext=plan.pext[rq], p_inv_mod_qi=plan.p_inv_mod_qi[rq],
+            n_active=len(q), key_special=len(cyclic(nq, parts, index)))
+        return hit
+
+    def rescale_rows(self, drop_idx: int, parts: int = 1, index: int = 0) -> RescaleRows:
+        """The rows the `drop_idx`-th dropped limb's rescale keeps (limbs
+        below it) that rank `index` of `parts` computes (`cyclic`).
+        Cached."""
+        key = ("rescale", drop_idx, parts, index)
+        hit = self._rows_cache.get(key)
+        if hit is not None:
+            return hit
+        self.thawed(f"new rescale rows for drop {drop_idx}")
+        plan = self.rescale_plans[drop_idx]
+        kept = cyclic(self.num_q - drop_idx - 1, parts, index)
+        rows = _rows(kept)
+        hit = self._rows_cache[key] = RescaleRows(
+            limbs=self.limb_set(kept), p=self.pc.p[rows], qlast_mod_qi=plan.qlast_mod_qi[rows],
+            qlast_inv=plan.qlast_inv[rows], qlast_half=plan.qlast_half)
+        return hit
 
     # -- rescale precompute ------------------------------------------------
 

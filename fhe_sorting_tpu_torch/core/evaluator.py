@@ -18,6 +18,15 @@ product with the key, then ModDown (division by P).  Every NTT goes through
 tables: K1 (four-step) or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
 sliced or copied per op.
 
+The key switch and the rescale compute the rows `Context.ks_rows` and
+`Context.rescale_rows` give for `limb_part` ((1, 0) here: every row), and
+reach the other rows' coefficients through two hooks, `_gather_rows`
+(ModUp's digit planes, ModDown's special planes) and `_drop_limb` (the
+dropped limb's coefficients).  Here the hooks are the identity and an
+INTT; `parallel/limb_parallel.py` supplies a limb rank's rows and
+collectives.  `ntt_planes` counts the limb planes each of them, and the
+plaintext encodes, transform.
+
 Everything an op uploads is memoised on the device: encoded plaintexts (an
 LRU bounded by bytes), scalar residues by (integer, limbs), and `combo`'s
 coefficient and constant residues by content.  So once a call has run, the
@@ -76,6 +85,9 @@ class Evaluator:
         self._combo_memo: dict = {}
         # inside `frozen()`: every memoised tensor and key the ops read
         self._reads: list | None = None
+        # limb planes through the NTT and INTT, by what transformed them
+        # ("modup", "moddown", "rescale", "plaintext", ...)
+        self.ntt_planes: Counter = Counter()
         # the gather-free automorphism, opt-in as in the JAX package
         aff = os.environ.get("FHE_AFFINE_AUTO", "0")
         self.use_affine = aff == "force" or (aff == "1" and ctx.ntt_impl == "mxu")
@@ -107,10 +119,12 @@ class Evaluator:
 
     # -- helpers -----------------------------------------------------------
 
-    def _ntt(self, x, limbs):
+    def _ntt(self, x, limbs, what: str = "other"):
+        self.ntt_planes[what] += x.numel() // x.shape[-1]
         return nttm.ntt(x, self.ctx.tables, limbs)
 
-    def _intt(self, x, limbs):
+    def _intt(self, x, limbs, what: str = "other"):
+        self.ntt_planes[what] += x.numel() // x.shape[-1]
         return nttm.intt(x, self.ctx.tables, limbs)
 
     def _scalar_limbs(self, c: float, level: int, scale: float) -> torch.Tensor:
@@ -120,21 +134,38 @@ class Evaluator:
         if hit is None:
             hit = self._scalar_memo[(m, Ll)] = self.ctx.tensor(
                 [[m % p] for p in self.ctx.q_primes[:Ll]])
-        return self._read(hit)
+        return self._read(self._own(hit))
 
     # The limb-local ops (add, sub, negate, the products and the tensor
-    # product, the automorphism's permutation) take their primes from
-    # `moduli`, a plaintext's planes from `_pt_planes` and the key switch
-    # from `_keyswitch_core`: a limb-parallel evaluator overrides those
-    # three and `_scalar_limbs` to run the same ops on its block of limbs.
+    # product, the automorphism's permutation, `combo`) take their primes
+    # from `_primes`, and the rows of a whole-chain tensor [..., L, n]
+    # (a plaintext's planes, scalar and `combo` residues) from `_own`; the
+    # key switch and the rescale take their rows from `limb_part`.  A
+    # limb-parallel evaluator overrides those to run the same ops on its
+    # own limbs.
+
+    limb_part = (1, 0)      # (ranks of the limb axis, this rank's index)
+
+    def _own(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
+        """The rows, along its limb axis `dim`, of a whole tensor that the
+        ops compute on."""
+        return x
+
+    def _primes(self, level: int) -> torch.Tensor:
+        """The primes [L, 1] of the limb planes at `level` the ops compute on."""
+        return self.ctx.p_active(level)
+
+    def _rows_at(self, level: int) -> int:
+        """The number of limb planes at `level` the ops compute on."""
+        return self.ctx.limbs_at(level)
 
     def moduli(self, a: Ciphertext) -> torch.Tensor:
         """The primes [L, 1] of a's limb planes."""
-        return self.ctx.p_active(a.level)
+        return self._primes(a.level)
 
     def _pt_planes(self, pt: Plaintext) -> torch.Tensor:
         """The plaintext's limb planes that the ops compute on."""
-        return pt.data
+        return self._own(pt.data)
 
     # -- plaintext construction --------------------------------------------
 
@@ -163,7 +194,7 @@ class Evaluator:
             res = ctx.tensor(coeffs_to_residues(coeffs, ctx.q_primes[: ctx.limbs_at(level)]))
         self.pt_stats["misses"] += 1
         self.pt_stats["encode_s"] += time.perf_counter() - t0
-        pt = Plaintext(self._ntt(res, ctx.active_limbs(level)), level, sdeg, s)
+        pt = Plaintext(self._ntt(res, ctx.active_limbs(level), "plaintext"), level, sdeg, s)
         nbytes = pt.data.numel() * pt.data.element_size()
         self._pt_cache[key] = pt
         self._pt_cache_used += nbytes
@@ -230,8 +261,8 @@ class Evaluator:
 
     def _drop_limbs(self, a: Ciphertext, target_level: int) -> Ciphertext:
         """Raw limb drop: the declared level changes, the true scale does not."""
-        Lt = self.ctx.limbs_at(target_level)
-        return Ciphertext(a.data[:, :Lt], target_level, a.sdeg, a.slots)
+        Lt = self._rows_at(target_level)
+        return replace(a, data=a.data[:, :Lt], level=target_level)
 
     def level_reduce(self, a: Ciphertext, target_level: int) -> Ciphertext:
         """Descend to target_level keeping the declared scale exact: a raw
@@ -254,10 +285,10 @@ class Evaluator:
         la = a.level
         t = float(ctx.scale_dec(target_level) * ctx.drop_prime(la) / ctx.scale_dec(la))
         sc = self._scalar_limbs(1.0, la, t)
-        a = Ciphertext(mulmod(a.data, sc, ctx.p_active(la)), la, 2, a.slots)
+        a = replace(a, data=mulmod(a.data, sc, self._primes(la)), sdeg=2)
         a = self._rescale_data(a)
         # the t-fold above already landed the true scale at scale_dec(target)
-        return self._drop_limbs(Ciphertext(a.data, a.level, 1, a.slots), target_level)
+        return self._drop_limbs(replace(a, sdeg=1), target_level)
 
     def _to_sdeg2(self, a: Ciphertext) -> Ciphertext:
         sc = self._scalar_limbs(1.0, a.level, self.ctx.scale(a.level, 1))
@@ -275,6 +306,12 @@ class Evaluator:
 
     # -- rescale -----------------------------------------------------------
 
+    def _drop_limb(self, data: torch.Tensor, limb: int):
+        """(coefficients [2, 1, n] of the top limb `limb`, the other rows):
+        the rescale's hook for the limb it drops."""
+        x = self._intt(data[:, limb : limb + 1], self.ctx.limbs_range(limb, limb + 1), "rescale")
+        return x, data[:, :limb]
+
     def _rescale_data(self, a: Ciphertext) -> Ciphertext:
         ctx = self.ctx
         lvl = a.level
@@ -286,19 +323,18 @@ class Evaluator:
         data = a.data
         for j in range(comp):
             Ll = ctx.limbs_at(lvl) - j
-            plan = ctx.rescale_plans[lvl * comp + j]
-            p_rest = ctx.pc.p[: Ll - 1]
-            x = self._intt(data[:, Ll - 1 : Ll], ctx.limbs_range(Ll - 1, Ll))  # [2,1,n]
-            xm = torch.remainder(x, p_rest)
-            t = torch.where(x >= plan.qlast_half, sub_mod(xm, plan.qlast_mod_qi, p_rest), xm)
-            num = sub_mod(data[:, : Ll - 1], self._ntt(t, ctx.limbs_range(0, Ll - 1)), p_rest)
-            data = mulmod(num, plan.qlast_inv, p_rest)
-        return Ciphertext(data, lvl + 1, a.sdeg, a.slots)
+            rows = ctx.rescale_rows(lvl * comp + j, *self.limb_part)
+            x, rest = self._drop_limb(data, Ll - 1)                      # [2,1,n]
+            xm = torch.remainder(x, rows.p)
+            t = torch.where(x >= rows.qlast_half, sub_mod(xm, rows.qlast_mod_qi, rows.p), xm)
+            num = sub_mod(rest, self._ntt(t, rows.limbs, "rescale"), rows.p)
+            data = mulmod(num, rows.qlast_inv, rows.p)
+        return replace(a, data=data, level=lvl + 1)
 
     def _rescale_impl(self, a: Ciphertext) -> Ciphertext:
         assert a.sdeg == 2, "rescale only from scale degree 2"
         out = self._rescale_data(a)
-        return Ciphertext(out.data, out.level, 1, out.slots)
+        return replace(out, sdeg=1)
 
     def rescale(self, a: Ciphertext) -> Ciphertext:
         self.op_stats[("rescale", a.level)] += 1
@@ -368,45 +404,49 @@ class Evaluator:
 
     # -- key switching -----------------------------------------------------
 
+    def _gather_rows(self, y: torch.Tensor, limbs: int) -> torch.Tensor:
+        """The whole [..., limbs, n] coefficient planes of which `y` holds
+        the rows this evaluator computes: the key switch's hook before a
+        base extension, which reads every row."""
+        return y
+
     def _modup(self, d_limb: torch.Tensor, level: int) -> torch.Tensor:
         """Hybrid ModUp: [Ll, n] eval -> per-digit extended [D, T, n] eval.
 
         The CRT base extension of each digit is an exact modular matmul:
-        out[t] = sum_i fac[t, i] y[i] mod p_t."""
+        out[t] = sum_i fac[t, i] y[i] mod p_t, one output row at a time, so
+        an evaluator computes the target rows it holds from the whole
+        digit planes."""
         ctx = self.ctx
-        plan = ctx.ks_plans[level]
-        p_a = ctx.p_active(level)
-        target = ctx.target_limbs(level)
-        p_t = ctx.pc.p[target]
-        y = mulmod(self._intt(d_limb, ctx.active_limbs(level)), plan.dhat_inv, p_a)
-        ext = torch.stack([mod_matmul(fac, y[lo:hi], p_t)
-                           for fac, (lo, hi) in zip(plan.dig_ext, ctx.digit_layout(level))])
-        return self._ntt(ext, target)
+        rows = ctx.ks_rows(level, *self.limb_part)
+        y = mulmod(self._intt(d_limb, rows.active, "modup"), rows.dhat_inv, rows.p_active)
+        y = self._gather_rows(y, ctx.limbs_at(level))
+        ext = torch.stack([mod_matmul(fac, y[lo:hi], rows.p_target)
+                           for fac, (lo, hi) in zip(rows.dig_ext, ctx.digit_layout(level))])
+        return self._ntt(ext, rows.target, "modup")
 
     def _inner_product(self, digits: torch.Tensor, level: int, ksk: KeySwitchKey):
         """sum_j digits[j] * ksk[j] over the target basis (active Q + P),
         computed on the key's active and special rows in place."""
-        ctx = self.ctx
-        Ll = ctx.limbs_at(level)
-        D = digits.shape[0]
-        p_a, p_s = ctx.p_active(level), ctx.p_special()
+        rows = self.ctx.ks_rows(level, *self.limb_part)
+        a, D = rows.n_active, digits.shape[0]
+        p_a, p_s = rows.p_active, rows.p_special
         out = []
         for k in (ksk.kb, ksk.ka):
-            q = torch.remainder(mulmod(digits[:, :Ll], k[:D, :Ll], p_a).sum(0), p_a)
-            s = torch.remainder(mulmod(digits[:, Ll:], k[:D, ctx.num_q:], p_s).sum(0), p_s)
+            q = torch.remainder(mulmod(digits[:, :a], k[:D, :a], p_a).sum(0), p_a)
+            s = torch.remainder(mulmod(digits[:, a:], k[:D, rows.key_special:], p_s).sum(0), p_s)
             out.append(torch.cat([q, s]))
         return out
 
     def _moddown(self, c: torch.Tensor, level: int) -> torch.Tensor:
         """Exact division by P.  c: [..., Ll+K, n] -> [..., Ll, n]."""
         ctx = self.ctx
-        plan = ctx.ks_plans[level]
-        Ll = ctx.limbs_at(level)
-        p_a, p_s = ctx.p_active(level), ctx.p_special()
-        cp = self._intt(c[..., Ll:, :], ctx.special_limbs())
-        y = mulmod(cp, plan.phat_inv, p_s)
-        ext = self._ntt(mod_matmul(plan.pext, y, p_a), ctx.active_limbs(level))
-        return mulmod(sub_mod(c[..., :Ll, :], ext, p_a), plan.p_inv_mod_qi, p_a)
+        rows = ctx.ks_rows(level, *self.limb_part)
+        a, p_a, p_s = rows.n_active, rows.p_active, rows.p_special
+        cp = self._intt(c[..., a:, :], rows.special, "moddown")
+        y = self._gather_rows(mulmod(cp, rows.phat_inv, p_s), ctx.num_sp)
+        ext = self._ntt(mod_matmul(rows.pext, y, p_a), rows.active, "moddown")
+        return mulmod(sub_mod(c[..., :a, :], ext, p_a), rows.p_inv_mod_qi, p_a)
 
     def _keyswitch_core(self, d_limb, level: int, ksk: KeySwitchKey):
         acc0, acc1 = self._inner_product(self._modup(d_limb, level), level, ksk)
@@ -479,8 +519,8 @@ class Evaluator:
         digits = self._apply_auto(pre, g, a.level, target=True)
         acc0, acc1 = self._inner_product(digits, a.level, ksk)
         e = self._moddown(torch.stack([acc0, acc1]), a.level)
-        c0 = add_mod(self._apply_auto(a.data[0], g, a.level), e[0], self.ctx.p_active(a.level))
-        return Ciphertext(torch.stack([c0, e[1]]), a.level, a.sdeg, a.slots)
+        c0 = add_mod(self._apply_auto(a.data[0], g, a.level), e[0], self.moduli(a))
+        return a.with_data(torch.stack([c0, e[1]]))
 
     # -- batched linear combinations ---------------------------------------
 
@@ -499,14 +539,15 @@ class Evaluator:
             if c.level < lvl:
                 c = self.adjust_level(c, lvl)
             aligned.append(c)
-        Ll = self.ctx.limbs_at(lvl)
+        Ll = self._rows_at(lvl)
         rows = np.asarray(rows, dtype=np.float64)
         consts = np.asarray(consts, dtype=np.float64)
         R, B = rows.shape
         assert B == len(cts) and consts.shape == (R,)
         coeff, const = self._combo_residues(rows, consts, lvl)
+        coeff, const = self._own(coeff, 0), self._own(const)
         self.op_stats[("combo", lvl, B, R)] += 1
-        p = self.ctx.p_active(lvl)
+        p = self._primes(lvl)
         n = aligned[0].data.shape[-1]
         # limb chunks bound the stacked operand (and mod_matmul's float64
         # halves of it) to _COMBO_CHUNK_BYTES: at N=1024 the sinc's 64 babies
@@ -522,8 +563,7 @@ class Evaluator:
         out = out.reshape(Ll, R, 2, n).permute(1, 2, 0, 3)         # [R, 2, L, n]
         d0 = add_mod(out[:, 0], const, p)
         out = torch.stack([d0, out[:, 1]], dim=1)
-        slots = aligned[0].slots
-        return [Ciphertext(out[r], lvl, 2, slots) for r in range(R)]
+        return [replace(aligned[0], data=out[r], sdeg=2) for r in range(R)]
 
     def _combo_residues(self, rows: np.ndarray, consts: np.ndarray, lvl: int):
         """`combo`'s coefficient residues [L, R, B] and constant residues

@@ -13,7 +13,16 @@ over every prime of Q*P, with s' = s^2 (relinearisation) or sigma_g(s).
 
 `Keys.from_numpy` builds keys from arrays (for example a JAX package key
 set, converted with `np.asarray`) so both packages can compute on identical
-keys and be compared bit for bit.  A `Keys` with `s_coeffs=s_eval=None` is
+keys and be compared bit for bit.
+
+A key set with `rows` is one limb rank's view (`parallel/mesh.LimbLayout.
+key_rows`): every key-switch key holds only those rows of its Lq+K, in that
+order, taken before anything reaches the device (`from_numpy` selects them
+on the host; generation makes no other row).  Generation draws each
+row's uniform part from a generator of its own, seeded by the key's seed
+and the row, whether the key set holds every row or some: so ranks that
+split the rows of one stream hold rows of the same keys as a whole key
+set, whatever the split.  A `Keys` with `s_coeffs=s_eval=None` is
 the server's secret-free key set (`core/serialize.load_eval_keys` builds
 one): it encrypts and evaluates, and raises `SecretKeyMissing` on anything
 that needs the secret.
@@ -69,11 +78,14 @@ class Keys:
     pk: tuple                       # (b, a) [Lq, n] u64 eval (host)
     relin: KeySwitchKey | None = None
     rot: dict = field(default_factory=dict)    # galois element -> KeySwitchKey
+    rows: tuple | None = None       # the rows of Lq+K held (None: all)
 
     # -- generation -------------------------------------------------------
 
     @classmethod
-    def generate(cls, ctx: Context, seed: int = 0) -> "Keys":
+    def generate(cls, ctx: Context, seed: int = 0, rows: tuple | None = None) -> "Keys":
+        """`rows`: hold only those rows of every key-switch key (the module
+        docstring)."""
         rng = np.random.default_rng(seed)
         n = ctx.params.ring_n
         all_p = ctx.all_primes
@@ -95,17 +107,24 @@ class Keys:
         for i, p in enumerate(ctx.q_primes):
             P = np.uint64(p)
             b[i] = ((P - a[i]) * s_eval[i] + e_eval[i]) % P
-        keys = cls(ctx=ctx, s_coeffs=s.astype(np.int8), s_eval=s_eval, pk=(b, a))
+        keys = cls(ctx=ctx, s_coeffs=s.astype(np.int8), s_eval=s_eval, pk=(b, a),
+                   rows=None if rows is None else tuple(rows))
         keys.gen_relin_key(rng)
         return keys
 
     @classmethod
     def from_numpy(cls, ctx: Context, s_coeffs, s_eval, pk_b, pk_a,
-                   relin_kb, relin_ka, rot=None, conj=None) -> "Keys":
+                   relin_kb, relin_ka, rot=None, conj=None,
+                   rows: tuple | None = None) -> "Keys":
         """Keys from numpy arrays; `rot` maps galois element -> (kb, ka),
         `conj` is the conjugation key's (kb, ka).  `s_coeffs` and `s_eval`
-        may both be None: the key set then holds no secret."""
-        dev = ctx.tensor
+        may both be None: the key set then holds no secret.  `rows`: only
+        those rows of every key-switch key [dnum, Lq+K, n] are uploaded."""
+        sel = slice(None) if rows is None else list(rows)
+
+        def dev(k):
+            return ctx.tensor(np.asarray(k)[:, sel])
+
         assert (s_coeffs is None) == (s_eval is None), "secret: both parts or neither"
         keys = cls(
             ctx=ctx,
@@ -115,6 +134,7 @@ class Keys:
             relin=KeySwitchKey(dev(relin_kb), dev(relin_ka)),
             rot={int(g): KeySwitchKey(dev(kb), dev(ka))
                  for g, (kb, ka) in (rot or {}).items()},
+            rows=None if rows is None else tuple(rows),
         )
         if conj is not None:
             keys.rot[2 * ctx.params.ring_n - 1] = KeySwitchKey(dev(conj[0]), dev(conj[1]))
@@ -134,7 +154,8 @@ class Keys:
             QhatD = Q // D
             g_big = ctx.P * QhatD * pow(QhatD, -1, D)
             out.append([g_big % p for p in ctx.all_primes])
-        return np.array(out, dtype=np.int64)
+        out = np.array(out, dtype=np.int64)
+        return out if self.rows is None else out[:, list(self.rows)]
 
     def _need_secret(self, what: str):
         if self.s_eval is None:
@@ -142,10 +163,32 @@ class Keys:
 
     @property
     def _s_dev(self) -> torch.Tensor:
+        """The secret's residues on the held rows, on the device."""
         self._need_secret("key generation")
         if getattr(self, "_s_dev_t", None) is None:
-            self._s_dev_t = self.ctx.tensor(self.s_eval)
+            held = self.s_eval if self.rows is None else self.s_eval[list(self.rows)]
+            self._s_dev_t = self.ctx.tensor(held)
         return self._s_dev_t
+
+    @property
+    def _row_limbs(self) -> torch.Tensor | None:
+        """The held rows as an index tensor into the chain (None: all)."""
+        if self.rows is None:
+            return None
+        if getattr(self, "_row_limbs_t", None) is None:
+            self._row_limbs_t = self.ctx.tensor(self.rows)
+        return self._row_limbs_t
+
+    @property
+    def _row_primes(self) -> torch.Tensor:
+        """The primes [rows, 1] of the held rows."""
+        p = self.ctx.pc.p
+        return p if self.rows is None else p[self._row_limbs]
+
+    def key_bytes(self) -> int:
+        """Device bytes of the key-switch keys held (relin and rotations)."""
+        held = [k for k in (self.relin, *self.rot.values()) if k is not None]
+        return sum(t.numel() * t.element_size() for k in held for t in (k.kb, k.ka))
 
     def _ksk_draws(self, rng) -> tuple:
         """What one key-switch key draws from the numpy stream `rng`: its
@@ -157,24 +200,38 @@ class Keys:
         e = np.rint(rng.normal(0, self.ctx.params.sigma, size=(dnum, n))).astype(np.int64)
         return e, int(rng.integers(0, 2**63))
 
-    def _gen_ksk(self, target: torch.Tensor, rng) -> KeySwitchKey:
-        """target: s' residues [Lq+K, n] eval domain on the device.
-
-        kb[j] = -a_j * s + e_j + g_j * s' over all Q*P primes; the uniform
-        a_j comes from a device generator seeded from the numpy stream."""
+    def _uniform(self, seed: int, dnum: int) -> torch.Tensor:
+        """The uniform draws [dnum, rows, n] of a key's held rows before
+        their reduction, row by row from a generator seeded by `seed` and
+        the row."""
         ctx = self.ctx
         n = ctx.params.ring_n
-        gres = ctx.tensor(self._gadget_residues())            # [dnum, Ltot]
-        dnum, Ltot = gres.shape
-        e, seed = self._ksk_draws(rng)
         gen = torch.Generator(device=ctx.device)
-        gen.manual_seed(seed)
-        p = ctx.pc.p                                        # [Ltot, 1]
-        e_res = torch.remainder(ctx.tensor(e)[:, None, :], p)  # [dnum, Ltot, n]
-        e_eval = nttm.ntt(e_res, ctx.tables)
+
+        def draw(row):
+            gen.manual_seed((seed + row * 0x9E3779B97F4A7C15) % (1 << 63))
+            return torch.randint(0, 1 << 62, (dnum, n), generator=gen, device=ctx.device,
+                                 dtype=torch.int64)
+
+        rows = range(ctx.num_q + ctx.num_sp) if self.rows is None else self.rows
+        return torch.stack([draw(k) for k in rows], dim=1)
+
+    def _gen_ksk(self, target: torch.Tensor, rng) -> KeySwitchKey:
+        """target: s' residues [rows, n] eval domain on the device (every
+        row of Lq+K, or the key set's `rows`).
+
+        kb[j] = -a_j * s + e_j + g_j * s' over the held rows of the Q*P
+        primes; the uniform a_j comes from a device generator seeded from
+        the numpy stream (`_uniform`)."""
+        ctx = self.ctx
+        gres = ctx.tensor(self._gadget_residues())            # [dnum, rows]
+        dnum = gres.shape[0]
+        e, seed = self._ksk_draws(rng)
+        p = self._row_primes                                  # [rows, 1]
+        e_res = torch.remainder(ctx.tensor(e)[:, None, :], p)  # [dnum, rows, n]
+        e_eval = nttm.ntt(e_res, ctx.tables, self._row_limbs)
         # 2^62 mod p / 2^62 < 2^-31: statistically uniform mod p
-        a = torch.remainder(torch.randint(0, 1 << 62, (dnum, Ltot, n), generator=gen,
-                                          device=ctx.device, dtype=torch.int64), p)
+        a = torch.remainder(self._uniform(seed, dnum), p)
         kb = add_mod(mulmod(neg_mod(a, p), self._s_dev, p), e_eval, p)
         kb = add_mod(kb, mulmod(gres[:, :, None], target, p), p)
         return KeySwitchKey(kb=kb, ka=a)
@@ -182,7 +239,7 @@ class Keys:
     def gen_relin_key(self, rng=None):
         self.ctx.thawed("a key generation")
         s_dev = self._s_dev
-        self.relin = self._gen_ksk(mulmod(s_dev, s_dev, self.ctx.pc.p),
+        self.relin = self._gen_ksk(mulmod(s_dev, s_dev, self._row_primes),
                                    rng or np.random.default_rng(1))
 
     def gen_rotation_keys(self, steps, seed: int | None = None):

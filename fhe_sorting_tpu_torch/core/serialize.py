@@ -86,6 +86,9 @@ def save_eval_keys(path: str, keys: Keys):
     entry)."""
     import zipfile
 
+    if keys.rows is not None:
+        raise ValueError("these are one limb rank's rows of the keys: save a whole key set")
+
     def entries():
         yield "pk_b", lambda: _to_u32(keys.pk[0])
         yield "pk_a", lambda: _to_u32(keys.pk[1])

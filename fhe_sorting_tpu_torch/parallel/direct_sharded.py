@@ -48,10 +48,13 @@ The two all-reduces run between the stages, on the caller's stream; the
 ranks' agreement on the summed metadata is checked once per sort object
 (`mesh.check_agreement`), when its stages are first built.
 
-On a ("batch", "limb") mesh pass a `LimbParallelEvaluator`: the input is
-sharded over the limb axis on the way in and gathered on the way out, and
-the limb all-gathers run inside the stages (captured with them on a CUDA
-context).
+On a ("batch", "limb") mesh pass a `LimbParallelEvaluator` whose keys hold
+the rank's rows (`Keys.rows`): the input is split over the limb axis on the
+way in and gathered on the way out, each rank computes its own rows of
+every op, and the key switches' gathers and the rescales' broadcasts run
+inside the stages (captured with them under NCCL; under gloo the stages run
+eagerly, `graphs=False`).  The offset keys are made from the evaluator's
+key set, so a limb rank makes and holds only its rows of them too.
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ def gen_offset_keys(keys, offsets, keep=None) -> list:
     returned as it is.
 
     `keep` (indices into `offsets`; all by default) are the keys this rank
-    holds; the others' entries are None, and no key of theirs is made.  The
+    holds; the others' entries are None, and no key of theirs is made.  A
+    key set that holds a limb rank's rows (`Keys.rows`) makes only those.  The
     i-th key is the stream's i-th draw, whether it is made, held already or
     skipped (`Keys._ksk_draws`), so every world size computes with the same
     keys."""

@@ -70,13 +70,18 @@ KERNELS = (fs_ntt, bf_ntt)
 
 def use_graphs(ev, graphs: bool | None) -> bool:
     """Whether a sort on `ev` runs on graphs: `None` means yes on a CUDA
-    context and no elsewhere; `True` on a CPU context raises."""
+    context and no elsewhere; `True` on a CPU context raises, and so does
+    asking for graphs (`None` or `True`) on a CUDA context whose evaluator
+    runs collectives a graph cannot capture (a limb-parallel evaluator
+    over gloo: `capturable`)."""
     on_cuda = getattr(getattr(ev.ctx, "device", None), "type", None) == "cuda"
-    if graphs is None:
-        return on_cuda
     if graphs and not on_cuda:
         raise ValueError("CUDA graphs need a CUDA context")
-    return bool(graphs)
+    use = on_cuda if graphs is None else bool(graphs)
+    if use and not getattr(ev, "capturable", True):
+        raise ValueError("a CUDA graph cannot capture this evaluator's collectives "
+                         "(gloo): pass graphs=False")
+    return use
 
 
 class GraphSet:

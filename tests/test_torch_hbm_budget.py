@@ -140,3 +140,102 @@ def test_chebyshev_ps_frees_its_temporaries_without_gc():
         assert all(r() is None for r in refs)
     finally:
         gc.enable()
+
+
+def _chain(num_q: int, num_sp: int, dnum: int, ring: int = 1 << 17):
+    """The sizes of a comp=2 chain that the reckoning reads, without its
+    tables: a ring-2^17 context is too large to build here."""
+    import types
+
+    return types.SimpleNamespace(params=types.SimpleNamespace(ring_n=ring), num_q=num_q,
+                                 num_sp=num_sp, tables=None,
+                                 digit_layout=lambda level: [None] * dnum,
+                                 limbs_at=lambda level: num_q - 2 * level)
+
+
+@pytest.mark.parametrize("term,chain,keys,n_cts,peak", [
+    ("direct_sharded", (86, 29, 3), 36, 4, 45.40),
+    ("direct_sharded_graphs", (86, 29, 3), 36, 4, 51.98),
+    ("mehp24_sharded", (96, 24, 4), 47, 12, 51.24),
+    ("mehp24_sharded_graphs", (96, 24, 4), 47, 12, 53.22)])
+def test_sharded_terms_cover_their_measured_peaks(term, chain, keys, n_cts, peak):
+    """The four sharded working sets, refitted to the peaks `chip_smoke.py`
+    phase 13 measured (sharded DirectSort N=1024: 20 rotation + 16 offset
+    keys on Lq 86, K 29; sharded MEHP24 N=512: 47 rotation keys on Lq 96,
+    K 24, dnum 4): each reckoning covers its peak, by less than one
+    ciphertext more than it needs."""
+    ctx = _chain(*chain)
+    used = hb.phase_bytes(ctx, keys, n_cts, work_cts=hb.WORK_CTS[term]) / (1 << 30)
+    short = hb.phase_bytes(ctx, keys, n_cts, work_cts=hb.WORK_CTS[term] - 1) / (1 << 30)
+    assert short < peak + 0.005 <= used
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_limb_rank_reckoned_at_its_share(env, ranks):
+    """A rank of a limb axis is reckoned at the largest share of rows, of a
+    key exactly what rank 0's rows of a real key take (`Keys.rows`), of a
+    ciphertext its rows at level 0, plus the whole coefficient planes a key
+    switch gathers; the ranks of the axis are reckoned together on one card,
+    and each rank's peak against its share of the budget."""
+    from fhe_sorting_tpu_torch.parallel.mesh import LimbLayout
+
+    ctx, keys = env
+    rows = LimbLayout(ctx.num_q, ctx.num_sp, ranks, 0).key_rows()
+    own = Keys.generate(ctx, seed=0, rows=rows)
+    assert hb.ksk_bytes(ctx, ranks) == _nbytes(own.relin.kb) + _nbytes(own.relin.ka)
+    assert hb.ksk_bytes(ctx, ranks) < hb.ksk_bytes(ctx)
+    ct = keys.encrypt(np.arange(4) / 4.0, seed=1)
+    assert hb.ct_bytes(ctx, 0, ranks) == _nbytes(ct.data[:, 0::ranks])
+    gathered = (ctx.num_q + 2 * ctx.num_sp) * ctx.params.ring_n * 8
+    assert hb.gathered_bytes(ctx, ranks) == gathered and hb.gathered_bytes(ctx, 1) == 0
+    k, c = hb.ksk_bytes(ctx, ranks), hb.ct_bytes(ctx, 0, ranks)
+    assert hb.phase_bytes(ctx, 3, 2, limb_ranks=ranks) == 4 * k + 6 * c + gathered
+    rank_gb = hb.phase_bytes(ctx, 3, 2, limb_ranks=ranks) / (1 << 30)
+    fits_gb = ranks * rank_gb / (1 - hb.DEFAULT_HEADROOM_FRAC) * 1.001
+    rep = hb.check_phase(ctx, 3, 2, limb_ranks=ranks, capacity_gb=fits_gb)
+    assert rep["fits"] and rep["rank_bytes"] == hb.phase_bytes(ctx, 3, 2, limb_ranks=ranks)
+    assert rep["limb_ranks"] == ranks and rep["used_gib"] == round(ranks * rank_gb, 2)
+    with pytest.raises(MemoryError):
+        hb.check_phase(ctx, 3, 2, limb_ranks=ranks, capacity_gb=fits_gb / 1.002)
+    # each rank's peak against its share of the card's budget (8 GiB of 10)
+    rep = hb.check_phase(ctx, 3, 2, limb_ranks=ranks, capacity_gb=10.0)
+    rep["rank_bytes"] = 5 << 30               # a reckoning that leaves the budget to bind
+    hb.check_peak(rep, 8.0 / ranks - 0.01)
+    with pytest.raises(MemoryError, match="budget"):
+        hb.check_peak(rep, 8.0 / ranks + 0.01)
+
+
+def test_check_peak_fails_above_the_reckoning(env):
+    """A peak within the budget but above what `check_phase` reckoned fails
+    too: such a reckoning would not catch an oversized phase before it
+    allocates."""
+    ctx, _ = env
+    rep = hb.check_phase(ctx, 3, 2, capacity_gb=10.0, label="tight")
+    reckoned = hb.phase_bytes(ctx, 3, 2) / (1 << 30)
+    hb.check_peak(rep, reckoned)
+    with pytest.raises(MemoryError, match="tight: .* exceeds the .* reckoned"):
+        hb.check_peak(rep, reckoned * 1.01 + 1e-6)
+    assert reckoned * 1.01 + 1e-6 < rep["budget_gib"]
+    # what was allocated before the phase counts against the budget, not
+    # against the phase's reckoning
+    hb.check_peak(rep, reckoned + 1.0, outside_gib=1.0)
+    with pytest.raises(MemoryError, match="budget"):
+        hb.check_peak(rep, rep["budget_gib"] + 0.01, outside_gib=rep["budget_gib"])
+
+
+@pytest.mark.parametrize("ring,chain,keys,peak", [
+    (1 << 17, (68, 23, 3), 9, 15.68),
+    (1 << 12, (66, 22, 3), 8, 0.53)], ids=["ring2^17", "ring2^12"])
+def test_scan_reckoning_covers_both_rings(ring, chain, keys, peak):
+    """ScanDirectSort on graphs, `chip_smoke.py` phase 14's two sorts (N=128
+    at ring 2^17, N=64 at ring 2^12, each peak less what was allocated
+    before its context): its ciphertext term fitted at ring 2^17 and its
+    fixed cost together cover both; at ring 2^12 the ciphertext term alone
+    falls short."""
+    ctx = _chain(*chain, ring=ring)
+    work = hb.WORK_CTS["direct_scan_graphs"]
+    used = hb.phase_bytes(ctx, keys, 4, work_cts=work,
+                          fixed_mib=hb.FIXED_MIB["direct_scan_graphs"]) / (1 << 30)
+    assert peak + 0.005 <= used
+    if ring == 1 << 12:
+        assert hb.phase_bytes(ctx, keys, 4, work_cts=work) / (1 << 30) < peak

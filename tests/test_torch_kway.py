@@ -243,7 +243,7 @@ def test_kway_run_keeps_the_default_memo_where_one_refresh_does_not_fit():
 
 
 def test_kway_run_check_peak_fails_over_the_budget():
-    run = SimpleNamespace(report={"budget_gib": 63.34, "used_gib": 40.33, "label": "k-way"})
+    run = SimpleNamespace(report={"budget_gib": 63.34, "used_gib": 63.2, "label": "k-way"})
     hbm_budget.check_peak(run.report, 63.0)
     with pytest.raises(MemoryError, match="67.84 GiB exceeds the 63.34 GiB budget"):
         hbm_budget.check_peak(run.report, 67.84)

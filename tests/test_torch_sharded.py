@@ -14,8 +14,9 @@ of the sharded DirectSort (the offset rotation with the identity-galois
 key, and one batch's masked-rotation sum) and of the sharded MEHP24 (the
 replicate/transpose ladders, a pair's difference and the uniform rank fold)
 are bit-equal to the JAX package's evaluator ops; and the port's sharded
-sorts at two ranks (and on a 1 x 2 mesh with the limbs sharded) give the
-limb planes of its one-rank run, decrypting within 0.01.  Both sharded
+sorts at two ranks (and on a 1 x 2 mesh with the limbs distributed, each
+limb rank holding only its rows of every key) give the limb planes of its
+one-rank run, decrypting within 0.01.  Both sharded
 sorts run as stages (eager on the CPU): a second sort, inside the
 evaluator's frozen section, gives the first sort's planes, the ranks'
 agreement on the summed metadata is gathered at the first sort only, and
@@ -54,7 +55,7 @@ from fhe_sorting_tpu_torch.models.mehp24.sort import Mehp24Sort
 from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig
 from fhe_sorting_tpu_torch.parallel import direct_sharded as tds
 from fhe_sorting_tpu_torch.parallel.mehp24_sharded import ShardedMehp24
-from fhe_sorting_tpu_torch.parallel.mesh import init_world, make_mesh
+from fhe_sorting_tpu_torch.parallel.mesh import LimbLayout, init_world, make_mesh
 from fhe_sorting_tpu_torch.utils import multichip
 from fhe_sorting_tpu_torch.utils.params_registry import mehp24_indicator_cfg
 
@@ -216,20 +217,50 @@ def test_sharded_direct_sort_ranks_equal_one_rank(direct_env, direct_outs, shape
     assert err < 0.01
 
 
+def _limb_rows(e, rank: int) -> list:
+    """A rank's rows of a key on the 1 x 2 mesh."""
+    return list(LimbLayout(e.jctx.num_q, e.jctx.num_sp, 2, rank).key_rows())
+
+
 def test_batch_ranks_hold_only_their_offset_keys(direct_env, direct_outs):
     """At two batch ranks each holds the JAX package's offset key of its own
-    batch and no other; on the 1 x 2 mesh both limb ranks hold both."""
+    batch and no other; on the 1 x 2 mesh both limb ranks hold both, each
+    only its rows of them."""
     e = direct_env
     _, _, runs = direct_outs
     rot = {e.jctx.galois_element_rot(r) for r in tds.rotation_indices_sharded(N, RING)}
     g_off = [e.jctx.galois_element_rot(r) for r in e.offsets]
     for shape, mine in (((2,), lambda rank: [rank]), ((1, 2), lambda rank: [0, 1])):
         for rank, r in enumerate(runs[shape]):
+            rows = _limb_rows(e, rank) if len(shape) == 2 else slice(None)
             assert list(r["off_batches"]) == mine(rank)
             assert set(r["held"]) == rot | {g_off[b] for b in mine(rank)}
             for i, b in enumerate(mine(rank)):
-                np.testing.assert_array_equal(r["off_kb"][i], np.asarray(e.joff[b].kb).astype(np.int64))
-                np.testing.assert_array_equal(r["off_ka"][i], np.asarray(e.joff[b].ka).astype(np.int64))
+                np.testing.assert_array_equal(
+                    r["off_kb"][i], np.asarray(e.joff[b].kb)[:, rows].astype(np.int64))
+                np.testing.assert_array_equal(
+                    r["off_ka"][i], np.asarray(e.joff[b].ka)[:, rows].astype(np.int64))
+
+
+def test_limb_ranks_hold_only_their_key_rows(direct_env, direct_outs):
+    """On the 1 x 2 mesh each limb rank holds its rows of every key, relin,
+    rotation and offset keys alike (Q limb i and special prime j on rank
+    i, j mod 2), and so about half the key bytes of a batch rank that
+    holds the same keys whole."""
+    e = direct_env
+    _, _, runs = direct_outs
+    dnum = np.asarray(e.jkeys.relin.kb).shape[0]
+    whole = 2 * dnum * (e.jctx.num_q + e.jctx.num_sp) * RING * 8
+    for rank, r in enumerate(runs[(1, 2)]):
+        rows = _limb_rows(e, rank)
+        assert list(r["key_rows"]) == rows
+        n_keys = len(r["held"]) + 1                 # the rotation keys and relin
+        assert int(r["key_bytes"]) == n_keys * 2 * dnum * len(rows) * RING * 8
+        assert int(r["key_bytes"]) <= 0.55 * n_keys * whole
+    assert sorted(_limb_rows(e, 0) + _limb_rows(e, 1)) == list(
+        range(e.jctx.num_q + e.jctx.num_sp))
+    for r in runs[(2,)]:
+        assert len(r["key_rows"]) == 0 and int(r["key_bytes"]) == (len(r["held"]) + 1) * whole
 
 
 def _stage_runs(make, run, ev):

@@ -313,3 +313,55 @@ def test_failed_capture_raises_on_card():
 
     with pytest.raises(FrozenError, match="plaintext memo miss"):
         WholeGraph(ev, fresh_mask)([ct])
+
+
+@pytest.mark.cuda
+def test_limb_ranks_share_the_card_under_gloo(tmp_path):
+    """Two gloo ranks on one card (NCCL refuses two ranks on one GPU), the
+    limbs and the key rows split between them at ring 2^12: every case of
+    `multichip.run_limb_parallel` (the ops that mix limbs, on two chains)
+    bit-equal to the plain evaluator of one rank, gloo moving the CUDA
+    tensors through host memory; a key switch gathers Ll*n + 2*K*n
+    residues; and a stage on graphs is refused, since a graph cannot
+    capture a gloo collective."""
+    _card()
+    from fhe_sorting_tpu_torch.utils import multichip
+
+    def keys_np(k):
+        def pair(ksk):
+            return ksk.kb.cpu().numpy(), ksk.ka.cpu().numpy()
+
+        return dict(s_coeffs=k.s_coeffs, s_eval=k.s_eval, pk_b=k.pk[0], pk_a=k.pk[1],
+                    relin_kb=pair(k.relin)[0], relin_ka=pair(k.relin)[1],
+                    rot={g: pair(v) for g, v in k.rot.items()})
+
+    def chain(**kw):
+        params = CkksParams(ring_n=1 << 12, ntt_impl="butterfly", **kw)
+        keys = Keys.generate(Context(params), seed=0)
+        return params, keys
+
+    rng = np.random.default_rng(0)
+    params, keys = chain(mult_depth=6)
+    keys.gen_rotation_keys([1, 2, 4])
+    keys.gen_conj_key()
+    cts = [keys.encrypt(rng.uniform(-1, 1, 128), seed=i) for i in range(4)]
+    params2, keys2 = chain(mult_depth=3, scale_bits=56, comp=2, base_limbs=2, dnum=2)
+    ct2 = keys2.encrypt(rng.uniform(-1, 1, 128), seed=9)
+
+    def ct_np(c):
+        return c.data.cpu().numpy(), c.level, c.sdeg, c.slots
+
+    out = str(tmp_path / "rank")
+    multichip.spawn(multichip.run_limb_parallel, 2,
+                    (params, keys_np(keys), [ct_np(c) for c in cts], out, False,
+                     (params2, keys_np(keys2), ct_np(ct2))),
+                    backend="gloo", device="cuda:0")
+    ctx = keys.ctx
+    for rank in range(2):
+        r = dict(np.load(f"{out}{rank}.npz"))
+        got = [k for k in r if k.endswith("_got")]
+        assert len(got) >= 12
+        for k in got:
+            np.testing.assert_array_equal(r[k], r[k[:-4] + "_ref"], err_msg=k)
+        assert "cannot capture" in str(r["graphs_refused"])
+        assert int(r["ks_gathered"]) == (ctx.num_q + 2 * ctx.num_sp) * (1 << 12)
