@@ -27,6 +27,13 @@ INTT; `parallel/limb_parallel.py` supplies a limb rank's rows and
 collectives.  `ntt_planes` counts the limb planes each of them, and the
 plaintext encodes, transform.
 
+While `core/trace.py` records, each op and each part of the key switch
+(ModUp, the inner product with the key, ModDown) runs inside a span named
+`ev.<op>` (`ev.add`, `ev.rescale`, `ev.modup`, ...), so a profile of an
+eager run can charge every kernel to the op that launched it
+(`utils/profile_sort.py`).  A replayed CUDA graph runs no Python, and opens
+none.
+
 Everything an op uploads is memoised on the device: encoded plaintexts (an
 LRU bounded by bytes), scalar residues by (integer, limbs), and `combo`'s
 coefficient and constant residues by content.  So once a call has run, the
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from . import ntt as nttm
+from . import trace
 from .auto_affine import apply_affine
 from .cipher import Ciphertext, Plaintext
 from .context import Context, FrozenError
@@ -227,6 +235,7 @@ class Evaluator:
     def _on_c0(self, a: Ciphertext, fn) -> Ciphertext:
         return a.with_data(torch.stack([fn(a.data[0]), a.data[1]]))
 
+    @trace.op("ev.add")
     def add(self, a: Ciphertext, b) -> Ciphertext:
         self.op_stats[("add", a.level)] += 1
         if isinstance(b, Ciphertext):
@@ -239,6 +248,7 @@ class Evaluator:
         sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, a.sdeg))
         return self._on_c0(a, lambda c0: add_mod(c0, sc, p))
 
+    @trace.op("ev.sub")
     def sub(self, a: Ciphertext, b) -> Ciphertext:
         self.op_stats[("add", a.level)] += 1
         if isinstance(b, Ciphertext):
@@ -254,6 +264,7 @@ class Evaluator:
         """scalar/plaintext minus ciphertext."""
         return self.add(self.negate(a), b)
 
+    @trace.op("ev.negate")
     def negate(self, a: Ciphertext) -> Ciphertext:
         return a.with_data(neg_mod(a.data, self.moduli(a)))
 
@@ -272,6 +283,7 @@ class Evaluator:
             return self._drop_limbs(a, target_level)
         return self.adjust_level(a, target_level)
 
+    @trace.op("ev.adjust_level")
     def adjust_level(self, a: Ciphertext, target_level: int) -> Ciphertext:
         if a.level == target_level:
             return a
@@ -312,6 +324,7 @@ class Evaluator:
         x = self._intt(data[:, limb : limb + 1], self.ctx.limbs_range(limb, limb + 1), "rescale")
         return x, data[:, :limb]
 
+    @trace.op("ev.rescale")
     def _rescale_data(self, a: Ciphertext) -> Ciphertext:
         ctx = self.ctx
         lvl = a.level
@@ -342,6 +355,7 @@ class Evaluator:
 
     # -- multiplication ----------------------------------------------------
 
+    @trace.op("ev.mult")
     def mult(self, a: Ciphertext, b) -> Ciphertext:
         if isinstance(b, Ciphertext):
             le = max(a.level + (a.sdeg == 2), b.level + (b.sdeg == 2))
@@ -358,6 +372,7 @@ class Evaluator:
         sc = self._scalar_limbs(float(b), a.level, self.ctx.scale(a.level, 1))
         return replace(a, data=mulmod(a.data, sc, p), sdeg=2)
 
+    @trace.op("ev.mult_plain_at")
     def mult_plain_at(self, a: Ciphertext, values, roll: int = 0) -> Ciphertext:
         """Multiply by np.roll(values, roll) encoded at a's (post-rescale)
         level: the roll is a plaintext automorphism applied on the device,
@@ -373,6 +388,7 @@ class Evaluator:
         rolled = self._apply_auto(self._pt_planes(pt), g, a.level)
         return replace(a, data=mulmod(a.data, rolled, self.moduli(a)), sdeg=2)
 
+    @trace.op("ev.mult_ct")
     def _mult_ct(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
         if a.sdeg == 2:
             a = self._rescale_impl(a)
@@ -390,6 +406,7 @@ class Evaluator:
         e0, e1 = self._keyswitch_core(mulmod(a1, b1, p), a.level, self._read(self.keys.relin))
         return replace(a, data=torch.stack([add_mod(d0, e0, p), add_mod(d1, e1, p)]), sdeg=2)
 
+    @trace.op("ev.square")
     def square(self, a: Ciphertext) -> Ciphertext:
         self.op_stats[("mult_ct", a.level + (a.sdeg == 2))] += 1
         if a.sdeg == 2:
@@ -410,6 +427,7 @@ class Evaluator:
         base extension, which reads every row."""
         return y
 
+    @trace.op("ev.modup")
     def _modup(self, d_limb: torch.Tensor, level: int) -> torch.Tensor:
         """Hybrid ModUp: [Ll, n] eval -> per-digit extended [D, T, n] eval.
 
@@ -425,6 +443,7 @@ class Evaluator:
                            for fac, (lo, hi) in zip(rows.dig_ext, ctx.digit_layout(level))])
         return self._ntt(ext, rows.target, "modup")
 
+    @trace.op("ev.inner_product")
     def _inner_product(self, digits: torch.Tensor, level: int, ksk: KeySwitchKey):
         """sum_j digits[j] * ksk[j] over the target basis (active Q + P),
         computed on the key's active and special rows in place."""
@@ -438,6 +457,7 @@ class Evaluator:
             out.append(torch.cat([q, s]))
         return out
 
+    @trace.op("ev.moddown")
     def _moddown(self, c: torch.Tensor, level: int) -> torch.Tensor:
         """Exact division by P.  c: [..., Ll+K, n] -> [..., Ll, n]."""
         ctx = self.ctx
@@ -472,6 +492,7 @@ class Evaluator:
         tables = self._read(ctx.auto_tables()).select(limbs)
         return apply_affine(data, self._read(ctx.galois_affine(g)), tables)
 
+    @trace.op("ev.automorphism")
     def _automorphism(self, a: Ciphertext, g: int, ksk: KeySwitchKey | None = None,
                       gather: bool = False) -> Ciphertext:
         """sigma_g and the key switch back to s; `gather` takes the gather
@@ -506,6 +527,7 @@ class Evaluator:
         self.op_stats[("rot_pre", a.level)] += 1
         return self._modup(a.data[1], a.level)
 
+    @trace.op("ev.rotate_hoisted")
     def rotate_hoisted(self, a: Ciphertext, pre: torch.Tensor, r: int) -> Ciphertext:
         """Rotation over a shared precompute: sigma_g(ModUp(x)) =
         ModUp(sigma_g(x)) up to gadget-annihilated extension noise, so the
@@ -524,6 +546,7 @@ class Evaluator:
 
     # -- batched linear combinations ---------------------------------------
 
+    @trace.op("ev.combo")
     def combo(self, cts, rows, consts) -> list:
         """Batched sum_b rows[r][b] * cts[b] + consts[r] -> R ciphertexts.
 

@@ -64,10 +64,10 @@ class ScanDirectSort:
         self.coeffs = doubled_sinc_coefficients(N, stretch=stretch)
         self.graphs = use_graphs(ev, graphs)
         gs = GraphSet(ev.ctx.device) if self.graphs else None
-        self._graph = {name: WholeGraph(ev, fn, self.graphs, gs) for name, fn in (
-            ("p1_body", self._p1_body), ("p1_tail", self._p1_tail),
-            ("p2_head", self._p2_head), ("p2_body", self._p2_body),
-            ("p2_tail", self._p2_tail))}
+        self._graph = {name: WholeGraph(ev, fn, self.graphs, gs, f"scan.{name}")
+                       for name, fn in (("p1_body", self._p1_body), ("p1_tail", self._p1_tail),
+                                        ("p2_head", self._p2_head), ("p2_body", self._p2_body),
+                                        ("p2_tail", self._p2_tail))}
         self._check_pts = None
         self.phase_stats = {"constructRank": Counter(), "rotationIndexCheck": Counter()}
 

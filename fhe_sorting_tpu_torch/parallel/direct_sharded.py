@@ -146,7 +146,7 @@ class ShardedDirectSort:
         stretch = 1.0 + 4.0 / N
         self.alpha = 1.0 / (2.0 * N * stretch)
         self.coeffs = doubled_sinc_coefficients(N, stretch=stretch)
-        self.stages = StageTable(ev, graphs)
+        self.stages = StageTable(ev, graphs, "direct_sharded")
         self._agreed: set = set()
 
     # -- stage infrastructure ---------------------------------------------

@@ -17,9 +17,11 @@ CUDA graph, replayed at every later call, and on the CPU (or with
 
 `stages[name]` counts the stage's calls (`calls`) and holds the evaluator
 ops one call issues (`op_counts`); `stage_stats` and `phase_stats` weight
-them by the calls for the roofline (`utils/roofline.accumulate_sol`);
-`verbose` prints per-stage seconds (synchronizing the device first).  Key
-set: `scan_rotation_indices`.
+them by the calls for the roofline (`utils/roofline.accumulate_sol`).
+While `core/trace.py` records, each phase is a span
+(`direct.construct_rank`, `direct.index_check`) over its stages' dispatch
+spans (`direct.A`, `direct.Bg0`, ..., `direct.FG`, ...).  Key set:
+`scan_rotation_indices`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import math
 from collections import Counter
 
+from ..core import trace
 from ..core.cipher import Ciphertext
 from ..models.direct_sort import _default_np, checking_vector_n, index_vector, mask_block
 from ..ops.chebyshev import ChebyshevPS
@@ -70,13 +73,12 @@ class StagedDirectSort:
         stretch = 1.0 + 4.0 / N
         self.alpha = 1.0 / (2.0 * N * stretch)
         self.coeffs = doubled_sinc_coefficients(N, stretch=stretch)
-        self.stages = StageTable(ev, graphs)
-        self.verbose = False
+        self.stages = StageTable(ev, graphs, "direct")
 
     # -- stage infrastructure ---------------------------------------------
 
     def _run(self, name: str, fn, cts):
-        return self.stages.run(name, fn, cts, self.verbose)
+        return self.stages.run(name, fn, cts)
 
     def stage_stats(self) -> Counter:
         """Evaluator ops of every stage call so far: each stage's
@@ -110,6 +112,10 @@ class StagedDirectSort:
         return plan
 
     def construct_rank(self, ct: Ciphertext) -> Ciphertext:
+        with trace.span("direct.construct_rank", self.ev.ctx.device):
+            return self._construct_rank(ct)
+
+    def _construct_rank(self, ct: Ciphertext) -> Ciphertext:
         ev = self.ev
         N, np_, J, P = self.N, self.np_, self.J, self.P
         num_slots = self.num_slots
@@ -157,6 +163,10 @@ class StagedDirectSort:
     # -- phase 2: rotationIndexCheckN -------------------------------------
 
     def index_check(self, rank: Ciphertext, ct: Ciphertext) -> Ciphertext:
+        with trace.span("direct.index_check", self.ev.ctx.device):
+            return self._index_check(rank, ct)
+
+    def _index_check(self, rank: Ciphertext, ct: Ciphertext) -> Ciphertext:
         ev = self.ev
         N, np_, I2, P = self.N, self.np_, self.I2, self.P
         num_slots = self.num_slots

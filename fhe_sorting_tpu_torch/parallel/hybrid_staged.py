@@ -69,12 +69,13 @@ class StagedHybridSort:
         self.size = min(N, max_array)
         assert self.num_slots <= ring // 2
         self.base = StagedDirectSort(ev, N, sign_cfg, graphs)
+        self.base.stages.prefix = "hybrid"
         self.rot = RotationComposer(ev, sorted(hybrid_staged_keys(N, ring, max_array)))
         self.srt = DirectSort(ev, N, rot=self.rot)
         # sort_algo.h:968-981: dg 4 below N=512, else 5
         self.dgi = indicator_dg or (4 if N < 512 else 5)
         # one stage table for both phases: the placement's stages run and are
-        # counted by constructRank's runner (`base.verbose` prints them)
+        # counted by constructRank's runner, their spans named `hybrid.<stage>`
         self.stages = self.base.stages
         self._run = self.base._run
 

@@ -77,7 +77,7 @@ class ShardedMehp24:
         self.pairs = [pairs[i] for i in batch_sharding(self.mesh, len(pairs))]
         self.combos = [combos[i] for i in batch_sharding(self.mesh, len(combos))]
         assert self.pairs and self.combos, "this rank has no pair or no combo of the triangle"
-        self.stages = StageTable(ev, graphs)
+        self.stages = StageTable(ev, graphs, "mehp24_sharded")
         self._agreed: set = set()
 
     def _run(self, name: str, fn, cts):

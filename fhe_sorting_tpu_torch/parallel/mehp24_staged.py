@@ -17,12 +17,16 @@ as stages over a reduced rotation-key set:
     a CUDA context unless `graphs=False`, an eager call on the CPU).  A
     stage name is one graph, so a stage whose closure bakes in a host value
     (the index offset of part j) is named per value.
+
+While `core/trace.py` records, a sort is the span `mehp24.sort` over its
+stages' dispatch spans (`mehp24.split`, `mehp24.cmp`, `mehp24.Rsub0`, ...).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core import trace
 from ..core.cipher import Ciphertext
 from ..models.mehp24.sort import Mehp24Sort
 from ..models.mehp24.utils import combine_ciphertext, split_ciphertext
@@ -57,13 +61,16 @@ class StagedMehp24Multi:
         rot = RotationComposer(ev, sorted(mehp24_staged_keys(sub, ev.ctx.params.ring_n)))
         self.model = Mehp24Sort(ev, total, sub_length=sub, rot=rot)
         self.rot = rot
-        self.stages = StageTable(ev, graphs)
-        self.verbose = False
+        self.stages = StageTable(ev, graphs, "mehp24")
 
     def _run(self, name: str, fn, cts):
-        return self.stages.run(name, fn, cts, self.verbose)
+        return self.stages.run(name, fn, cts)
 
     def __call__(self, ct: Ciphertext) -> Ciphertext:
+        with trace.span("mehp24.sort", self.ev.ctx.device):
+            return self._sort(ct)
+
+    def _sort(self, ct: Ciphertext) -> Ciphertext:
         ev, mat = self.ev, self.model.mat
         k, sub, total = self.k, self.sub, self.total
         dg_c, df_c, dg_i, df_i = self.cfg

@@ -29,8 +29,16 @@ calls, as the JAX package passes a sharded step its checking vectors):
   * `op_counts` is the capture's per-dispatch op tally (the evaluator's
     `op_stats` is restored after it, as `WholeJit` restores it after its
     abstract pass) and `calls` counts dispatches.  The kernel modules'
-    `launches` counters count what the kernels really ran: the capture's
-    launches are taken back, and added again at every replay;
+    `launches` counters and the evaluator's `ntt_planes` count what the
+    kernels really ran: the capture's launches and planes are taken back,
+    and added again at every replay;
+  * every dispatch is one span of `core/trace.py`, named `<sort>.<stage>`
+    (the `StageTable`'s prefix), whose device interval brackets the
+    copy-in, the replay and the clone-out (or the eager call) and whose
+    counts are its `kind` ("eager", "capture": the first call on graphs,
+    or "replay"), the NTT `planes` and the K1 and K2 launches (`k1`,
+    `k2`) it ran, and the `ops` of its tally; a capture is a child span
+    `<sort>.<stage>.capture` without a device interval;
   * nothing falls back: on a CUDA context a failed capture raises.
 
 Streams and memory: the graphs of one sort share a `GraphSet`, one side
@@ -51,7 +59,6 @@ the same bookkeeping.
 
 from __future__ import annotations
 
-import sys
 import time
 import warnings
 from collections import Counter
@@ -60,7 +67,7 @@ from dataclasses import replace
 
 import torch
 
-from ..core import bf_ntt, fs_ntt
+from ..core import bf_ntt, fs_ntt, trace
 from ..core.cipher import Ciphertext
 from ..core.keys import KeySwitchKey
 
@@ -117,9 +124,11 @@ class WholeGraph:
     """`call(list[Ciphertext])` as one captured CUDA graph (see the module
     docstring); eager where `graph` is false."""
 
-    def __init__(self, ev, call, graph: bool | None = None, graph_set: GraphSet | None = None):
+    def __init__(self, ev, call, graph: bool | None = None, graph_set: GraphSet | None = None,
+                 name: str = "stage"):
         self.ev = ev
         self.call = call
+        self.name = name           # the dispatch span's name
         self.graph = use_graphs(ev, graph)
         self.graph_set = graph_set
         self.calls = 0             # dispatches
@@ -139,6 +148,7 @@ class WholeGraph:
         self._held = ()
         self._keys = ()
         self._launches = {}
+        self._planes = Counter()
 
     def __call__(self, cts):
         if not isinstance(cts, (list, tuple)):
@@ -152,15 +162,32 @@ class WholeGraph:
             f"separate stage name")
         self.calls += 1
         if not self.graph:
-            return self._eager(cts)
+            return self._dispatch("eager", self._eager, cts)
         if self.graph_set is None:
             self.graph_set = GraphSet(self.ev.ctx.device)
         with self.graph_set.bracket():
             if self._g is not None and self._keys_current():
-                return self._replay(cts)
+                return self._dispatch("replay", self._replay, cts)
             self._drop()
-            out = self._eager(cts)
-            self._capture(cts)
+            return self._dispatch("capture", self._first, cts)
+
+    def _first(self, cts):
+        out = self._eager(cts)
+        self._capture(cts)
+        return out
+
+    def _dispatch(self, kind: str, run, cts):
+        """`run(cts)` inside the dispatch's span, on the current stream (the
+        side stream on graphs), with what it ran counted on the span."""
+        with trace.span(self.name, self.ev.ctx.device) as sp:
+            if sp is None:
+                return run(cts)
+            planes = self.ev.ntt_planes.total()
+            launches = [mod.launches for mod in KERNELS]
+            out = run(cts)
+            sp.counts.update(kind=kind, planes=self.ev.ntt_planes.total() - planes,
+                             k1=fs_ntt.launches - launches[0], k2=bf_ntt.launches - launches[1],
+                             ops=sum(self.op_counts.values()))
             return out
 
     def _eager(self, cts):
@@ -186,13 +213,15 @@ class WholeGraph:
             buf.data.copy_(c.data)
         g = torch.cuda.CUDAGraph()
         before = [mod.launches for mod in KERNELS]
+        planes = Counter(ev.ntt_planes)
         ev.op_stats, saved = Counter(), ev.op_stats
         # the capture synchronizes first: the eager call's device work is
         # not the capture's time
         torch.cuda.synchronize(gs.device)
         t0 = time.perf_counter()
         try:
-            with ev.frozen() as reads, warnings.catch_warnings():
+            with trace.span(f"{self.name}.capture"), ev.frozen() as reads, \
+                    warnings.catch_warnings():
                 # a stage of metadata-only ops (a rotation by 0, SetSlots)
                 # captures no kernel: an empty graph is right there
                 warnings.filterwarnings("ignore", "The CUDA Graph is empty")
@@ -207,6 +236,8 @@ class WholeGraph:
             for mod, b in zip(KERNELS, before):
                 self._launches[mod] = mod.launches - b
                 mod.launches = b            # the capture launched nothing
+            self._planes = ev.ntt_planes - planes
+            ev.ntt_planes.subtract(self._planes)     # and transformed nothing
         self.capture_s += time.perf_counter() - t0
         self._g, self._ins = g, ins
         self._single = isinstance(out, Ciphertext)
@@ -221,35 +252,33 @@ class WholeGraph:
         outs = [replace(o, data=o.data.clone()) for o in self._outs]
         for mod, d in self._launches.items():
             mod.launches += d
+        self.ev.ntt_planes.update(self._planes)
         return outs[0] if self._single else outs
 
 
 class StageTable(dict):
     """The named stages of one sort, name -> `WholeGraph`, sharing one
-    `GraphSet` where they run on graphs (`use_graphs(ev, graphs)`)."""
+    `GraphSet` where they run on graphs (`use_graphs(ev, graphs)`); the
+    stage `name`'s dispatches are the spans `<prefix>.<name>`, the prefix
+    naming the sort."""
 
-    def __init__(self, ev, graphs: bool | None = None):
+    def __init__(self, ev, graphs: bool | None = None, prefix: str = "stage"):
         super().__init__()
         self.ev = ev
         self.graphs = use_graphs(ev, graphs)
         self.graph_set = None
+        self.prefix = prefix
 
-    def run(self, name: str, fn, cts, verbose: bool = False):
+    def run(self, name: str, fn, cts):
         """`fn(cts)` as the stage `name` (the first `fn` given a name is the
-        one its graph captures); `verbose` prints its seconds, synchronizing
-        the device first."""
+        one its graph captures)."""
         st = self.get(name)
         if st is None:
             if self.graphs and self.graph_set is None:
                 self.graph_set = GraphSet(self.ev.ctx.device)
-            st = self[name] = WholeGraph(self.ev, fn, self.graphs, self.graph_set)
-        t0 = time.time()
-        out = st(cts)
-        if verbose:
-            if self.ev.ctx.device.type == "cuda":
-                torch.cuda.synchronize(self.ev.ctx.device)
-            print(f"#   stage {name}: {time.time() - t0:.2f}s", file=sys.stderr)
-        return out
+            st = self[name] = WholeGraph(self.ev, fn, self.graphs, self.graph_set,
+                                         f"{self.prefix}.{name}")
+        return st(cts)
 
     def release(self):
         """Drop every stage's graph, and with it what the graph holds (its

@@ -12,7 +12,8 @@ composite-scaling chain (scale 2^56 from prime pairs with `--comp 2`),
 checks its logQP against the 128-bit budget, reckons the device memory
 before it allocates (`hbm_budget`), generates the minimal scan key set,
 then runs `StagedDirectSort`, on CUDA graphs on the card: a warm-up sort
-(each stage eagerly, then captured), then `--trials` timed sorts (one for
+(each stage eagerly, then captured; its stage dispatches' host and device
+seconds printed from the spans of `core/trace.py`), then `--trials` timed sorts (one for
 N >= 512), each phase ending in a device synchronise.  The error is a
 decrypt of the last timed sort (on the card a graph replay), whose planes
 must equal the warm-up's.  The NTT is the context's default
@@ -75,7 +76,7 @@ def _log(msg: str) -> None:
 
 def worker(args) -> dict:
     """One N in this process; returns `bench.py`'s result dict."""
-    from ..core import bf_ntt, fs_ntt
+    from ..core import bf_ntt, fs_ntt, trace
     from ..core.ntt import synchronize
     from . import hbm_budget, roofline
     from .profile_sort import rotation_steps, sort_context, sorter
@@ -116,16 +117,20 @@ def worker(args) -> dict:
     vals = np.random.default_rng(0).permutation(n_arr) / n_arr + 0.5 / n_arr
     ct = keys.encrypt(vals)
 
-    # warm-up: each stage runs eagerly, then (on the card) is captured
-    srt.verbose = True
-    t0 = time.perf_counter()
-    rank = srt.construct_rank(ct)
-    synchronize(ctx.device)
-    t1 = time.perf_counter()
-    warm = srt.index_check(rank, ct)
-    synchronize(ctx.device)
-    t2 = time.perf_counter()
-    srt.verbose = False
+    # warm-up: each stage runs eagerly, then (on the card) is captured; its
+    # stage dispatches are the spans of one recording window
+    with trace.recording():
+        t0 = time.perf_counter()
+        rank = srt.construct_rank(ct)
+        synchronize(ctx.device)
+        t1 = time.perf_counter()
+        warm = srt.index_check(rank, ct)
+        synchronize(ctx.device)
+        t2 = time.perf_counter()
+    for sp in trace.spans():
+        if "kind" in sp.counts:
+            _log(f"#   stage {sp.name} ({sp.counts['kind']}): host {(sp.end - sp.start) / 1e9:.2f}s, "
+                 f"device {(sp.device[1] - sp.device[0]) / 1e9:.2f}s")
     _log(f"# warm-up: constructRank {t1 - t0:.1f}s, rotationIndexCheck {t2 - t1:.1f}s; "
          f"{srt.stages.graph_count()} graphs captured in {srt.stages.capture_seconds():.2f}s")
     del rank

@@ -30,6 +30,8 @@ class _MeterParams:
 
 
 class _MeterCtx:
+    device = None                        # no data: nothing runs on a device
+
     def __init__(self, ring_n: int):
         self.params = _MeterParams(ring_n)
 
@@ -58,6 +60,7 @@ class MeterEvaluator:
         self.ctx = _MeterCtx(ring_n)
         self.keys = _AllKeys(self.ctx)
         self.op_stats: Counter = Counter()
+        self.ntt_planes: Counter = Counter()     # none: no data is transformed
         self.max_level = 0
         self.mults = 0
         self.rotations = 0

@@ -40,12 +40,12 @@ TILE = 256                       # the reference's tile: 256 values, 256x256 slo
 LOGQP_128 = 3524                 # ring 2^17, HEStd_128_classic
 
 
-def _context(depth: int, dnum: int):
+def _context(depth: int, dnum: int, ntt: str = "butterfly"):
     from ..core.context import CkksParams, Context
     from .profile_sort import RING
 
     ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
-                             base_limbs=4, dnum=dnum, ntt_impl="butterfly"))
+                             base_limbs=4, dnum=dnum, ntt_impl=ntt))
     logqp = sum(math.log2(p) for p in ctx.all_primes)
     if logqp > LOGQP_128:
         raise ValueError(f"logQP {logqp:.1f} exceeds the 128-bit budget {LOGQP_128}")
@@ -152,10 +152,11 @@ def staged_hybrid(N: int, graphs: bool | None = None):
     return ctx, keys, sort, info
 
 
-def staged_mehp24(total: int, graphs: bool | None = None):
+def staged_mehp24(total: int, graphs: bool | None = None, ntt: str = "butterfly"):
     """(ctx, keys, sort, info) of the MEHP24 triangle sort of `total` values
-    over 256x256 tiles at ring 2^17 (`mehp24_plan`), dnum 4.  `sort(ct)`
-    takes the values in the first `total` of 256 * 256 slots."""
+    over 256x256 tiles at ring 2^17 (`mehp24_plan`), dnum 4, on the NTT
+    `ntt` names.  `sort(ct)` takes the values in the first `total` of
+    256 * 256 slots."""
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
     from ..parallel.mehp24_staged import StagedMehp24Multi, mehp24_staged_keys
@@ -163,7 +164,7 @@ def staged_mehp24(total: int, graphs: bool | None = None):
     from .profile_sort import RING
 
     sign, depth = mehp24_plan(total)
-    ctx, logqp = _context(depth, 4)
+    ctx, logqp = _context(depth, 4, ntt)
     steps = sorted(mehp24_staged_keys(TILE, RING))
     k = total // TILE
     # the parts, their two replications, the Cv/Ch accumulators and the ranks

@@ -246,7 +246,7 @@ def run_limb_parallel(rank: int, world: int, params, keys_np: dict, cts_np: list
     except ValueError as e:
         refused = str(e)
     # the ops as a stage, their collectives inside it
-    table = StageTable(lp, graphs)
+    table = StageTable(lp, graphs, "limb")
 
     def limb_ops(c):
         return lp.gather(lp.rotate(lp.rescale(lp.mult(c[0], c[0])), 1))
