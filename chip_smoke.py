@@ -4,9 +4,10 @@
 
 Phases (each failure raises, and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels K1 (four-step NTT on the s8 tensor cores) and K2
-     (butterfly NTT in one pass through a thread-block cluster) from
-     `fhe_sorting_tpu_torch/csrc`, one nvcc each, started together;
+  2. build the CUDA kernels K1 (four-step NTT on the s8 tensor cores), K2
+     (butterfly NTT in one pass through a thread-block cluster) and K3 (the
+     exact division by a dropped modulus) from `fhe_sorting_tpu_torch/csrc`,
+     one nvcc each, started together;
   3. hold K1 against its plain PyTorch version on the card, bit for bit:
      ring 2^17 (n1=256, n2=512) on limbs of the N=128 chain and on a whole
      ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape;
@@ -108,10 +109,16 @@ Phases (each failure raises, and the script exits non-zero):
      plain four-step and K1 bit-equal to the plain butterfly, then a
      rotation and a multiplication on K1); `utils/run_bootstrap.py` at its
      defaults (ring 2^14, sparse secret, level budget 3, on K1), max error
-     < 1e-2.
+     < 1e-2; K3 against its plain versions, bit for bit, on the top of the
+     `direct_n128` chain (ring 2^17, Lq 68: the first rescale's lift and
+     division [2, 67, 2^17], ModDown's division [2, 68, 2^17]), timed beside
+     its byte bound and beside the plain PyTorch chain it replaced.
 Phases 7-14 and 17 run butterfly contexts: each must launch K2 and never
 K1, with the counts set to 0 just before and read just after (in phase 17
-by each rank's process).  Every phase from 5 on
+by each rank's process).  Every counted run of a main path (each a sort, a
+refresh or a run of rotations, so each rescales or switches keys) must also
+launch K3, as often on graphs as eagerly where it runs both ways; the
+kernels' JSON gives K3 the sum of those runs' launches.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
 budget.
@@ -272,6 +279,19 @@ def _release():
     torch.cuda.empty_cache()
 
 
+# K3's launches in each counted run of a main path, by the run's label
+K3_RUNS = {}
+
+
+def _require_k3(label, k3):
+    """Record K3's launches in the counted run `label`, which must have
+    launched it: every such run rescales or switches keys."""
+    if k3 <= 0:
+        raise AssertionError(f"{label}: K3 was not launched")
+    K3_RUNS[label] = k3
+    return k3
+
+
 def _counted(counters, fn):
     """fn() with every kernel's count set to 0 just before and read just
     after (synchronised); returns (result, seconds, counts)."""
@@ -286,10 +306,11 @@ def _counted(counters, fn):
 
 
 def _require_k2_only(label, counts):
-    k1, k2 = counts
-    print(f"# {label}: K2 launches {k2}, K1 launches {k1}")
+    k1, k2, k3 = counts
+    print(f"# {label}: K2 launches {k2}, K1 launches {k1}, K3 launches {k3}")
     if k2 <= 0 or k1 != 0:
         raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
+    _require_k3(label, k3)
     return k2
 
 
@@ -724,8 +745,8 @@ def _both_ways(label, make, run, counters, smi, reports):
     graphs: a warm-up, then a sort counted with `_counted`, each way; every
     peak held to that way's reckoning (`reports[graphs]`).  Returns the
     counted outputs, the K2 launches of the sort on graphs, and the sort on
-    graphs.  The launches must agree both ways."""
-    outs, k2 = {}, {}
+    graphs.  The launches (K2 and K3) must agree both ways."""
+    outs, k2, launched = {}, {}, {}
     for graphs in (False, True):
         way = "on graphs" if graphs else "eager"
         srt = make(None if graphs else False)
@@ -744,8 +765,10 @@ def _both_ways(label, make, run, counters, smi, reports):
               f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the sort ({smi})")
         _check_memory(f"{label} {way}", reports[graphs], max(warm_peak, peak), smi)
         k2[graphs] = _require_k2_only(f"{label} {way}", counts)
-    if k2[True] != k2[False]:
-        raise AssertionError(f"{label}: K2 launches on graphs {k2[True]} != eager {k2[False]}")
+        launched[graphs] = counts
+    if launched[True] != launched[False]:
+        raise AssertionError(f"{label}: (K1, K2, K3) launches on graphs {launched[True]} != "
+                             f"eager {launched[False]}")
     return outs, k2[True], srt
 
 
@@ -821,7 +844,8 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     k2 += _require_k2_only("limb-parallel eager", counts_e)
     k2 += _require_k2_only("limb-parallel replay", counts)
     if counts != counts_e:
-        raise AssertionError(f"limb-parallel: K2 launches replayed {counts} != eager {counts_e}")
+        raise AssertionError(f"limb-parallel: (K1, K2, K3) launches replayed {counts} != eager "
+                             f"{counts_e}")
     del ctx, keys, srt, info, ct, outs, ev, lp, table, y, plain, eager, staged
     _release()
 
@@ -890,10 +914,11 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
         for rank, r in enumerate(rs):
             label = f"limb-parallel N={n} (1 x {world}) rank {rank}"
             report = json.loads(str(r["report"]))
-            fs, bf = (int(x) for x in r["launches"])
+            fs, bf, k3 = (int(x) for x in r["launches"])
             ks = [int(x) for x in r["ks_planes"]]
             print(f"# {label}: setup {float(r['setup_s']):.2f}s, sort {float(r['sort_s']):.3f}s "
-                  f"(the first: its plaintexts encoded on the way); K2 launches {bf}, K1 {fs}; "
+                  f"(the first: its plaintexts encoded on the way); K2 launches {bf}, K1 {fs}, "
+                  f"K3 {k3}; "
                   f"keys {int(r['n_keys'])} x its rows = {int(r['key_bytes']) / 2**30:.3f} GiB; "
                   f"NTT/INTT planes in ModUp, ModDown, rescale {ks} = {sum(ks)}, in plaintext "
                   f"encodes {int(r['pt_planes'])}; gathered {int(r['gathered']) * 8 / 2**20:.1f} "
@@ -902,6 +927,7 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
             _check_memory(label, report, float(r["peak_gib"]), smi)
             if bf <= 0 or fs != 0:
                 raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
+            _require_k3(label, k3)
             k2 += bf
             if not (np.array_equal(r["data"], one["data"])
                     and tuple(r["meta"]) == tuple(one["meta"])):
@@ -1050,7 +1076,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         return apply_auto(*a, **kw)
 
     ev._apply_auto = counted_auto
-    k1_graphs = 0
+    k1_graphs, k3_ways = 0, {}
     for (label, graphs), ref_s in zip((("affine sort eager", False), ("affine sort on graphs", None)),
                                       gather_s):
         report = hbm_budget.check_phase(
@@ -1064,7 +1090,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         warm_s = time.time() - t0
         warm_peak = torch.cuda.max_memory_allocated() / 2**30
         autos[0] = 0
-        out, secs, (k1, k2) = _counted(counters, lambda: srt(ct))
+        out, secs, (k1, k2, k3) = _counted(counters, lambda: srt(ct))
         peak = torch.cuda.max_memory_allocated() / 2**30
         got = keys.decrypt(out, N)
         err = float(np.abs(got - np.sort(vals)).max())
@@ -1073,8 +1099,8 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
             per_sort[op] = per_sort.get(op, 0) + v // srt.stages["D"].calls
         print(f"# {label} N={N} (K1 context, FHE_AFFINE_AUTO=1): warm-up {warm_s:.3f}s, sort "
               f"{secs:.3f}s against {ref_s:.3f}s by the gather (phase 5); K1 launches {k1}, K2 launches "
-              f"{k2}; automorphisms a sort: {per_sort.get('rot', 0)} rotations (op_stats), "
-              f"{per_sort.get('mult_pt', 0)} plaintext products, {autos[0]} affine automorphisms "
+              f"{k2}, K3 launches {k3}; automorphisms a sort: {per_sort.get('rot', 0)} rotations "
+              f"(op_stats), {per_sort.get('mult_pt', 0)} plaintext products, {autos[0]} affine automorphisms "
               f"run from Python in the timed sort (0 on graphs: replays); graphs "
               f"{srt.stages.graph_count()}, captured in {srt.stages.capture_seconds():.2f}s; peak "
               f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the sort; max sort error "
@@ -1084,12 +1110,16 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
             raise AssertionError(f"{label}: output planes differ from phase 5's gather sort")
         if k1 <= 0 or k2 != 0:
             raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
+        k3_ways[graphs] = _require_k3(label, k3)
         if not np.all(np.isfinite(got)) or not err < 0.01:
             raise AssertionError(f"{label}: sort error {err} >= 0.01")
         if graphs is None:
             k1_graphs = k1
         del srt, out
         _release()
+    if k3_ways[None] != k3_ways[False]:
+        raise AssertionError(f"affine: K3 launches on graphs {k3_ways[None]} != eager "
+                             f"{k3_ways[False]}")
     del ev, tables
     _release()
 
@@ -1134,10 +1164,12 @@ def _phase16_entry_points(counters, smi):
     forward and inverse, bit-equal to the plain butterfly; (c) K1 held to its
     plain version on the bootstrap harness's chain, then the harness
     (`utils/run_bootstrap.py`) at its defaults, ring 2^14 under a sparse
-    secret on K1, max error below 1e-2.  Returns the (K1, K2) launches of
-    the bench's timed sort and of the refresh, and K1's largest difference
-    from its plain version; the launches of the NTT bench and of the checks
-    only time and compare the kernels, and are not counted."""
+    secret on K1, max error below 1e-2; (d) K3 against its plain versions at
+    the top of `direct_n128`'s chain (`_k3_check`).  Returns the (K1, K2)
+    launches of the bench's timed sort and of the refresh, K1's largest
+    difference from its plain version, and K3's record; the launches of the
+    NTT bench and of the checks only time and compare the kernels, and are
+    not counted."""
     from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu
     from fhe_sorting_tpu_torch.utils import bench, ntt_bench, run_bootstrap
 
@@ -1166,10 +1198,12 @@ def _phase16_entry_points(counters, smi):
             and res["err_method"] == "decrypt" and res["value"] > 0
             and 0 < res["pct_of_sol"] < 105):
         raise AssertionError(f"bench: result out of bounds: {res}")
-    k1_bench, k2_bench = map(int, bench.LAUNCH_LINE.search(proc.stderr).groups())
-    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench} in the timed sort ({smi})")
+    k1_bench, k2_bench, k3_bench = map(int, bench.LAUNCH_LINE.search(proc.stderr).groups())
+    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench}, K3 launches {k3_bench} in "
+          f"the timed sort ({smi})")
     if k1_bench <= 0:
         raise AssertionError("bench: the timed sort did not launch K1")
+    _require_k3("bench", k3_bench)
 
     # -- (b) the NTT microbenchmark; its launches compare and time, uncounted
     saved = [mod.launches for mod in counters]
@@ -1214,13 +1248,81 @@ def _phase16_entry_points(counters, smi):
         print(f"# run_bootstrap row: {buf.getvalue().strip()} ({smi})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    k1_boot, k2_boot = counts
-    print(f"# run_bootstrap: K1 launches {k1_boot}, K2 launches {k2_boot}; {secs:.1f}s in all")
+    k1_boot, k2_boot, k3_boot = counts
+    print(f"# run_bootstrap: K1 launches {k1_boot}, K2 launches {k2_boot}, K3 launches "
+          f"{k3_boot}; {secs:.1f}s in all")
     if not out["max_err"] < 1e-2:
         raise AssertionError(f"run_bootstrap: max error {out['max_err']} >= 1e-2")
     if k1_boot <= 0:
         raise AssertionError("run_bootstrap: the refresh did not launch K1")
-    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err
+    _require_k3("run_bootstrap", k3_boot)
+    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err, _k3_check(smi)
+
+
+def _k3_check(smi):
+    """K3 against its plain versions on the card, bit for bit, at the top of
+    `direct_n128`'s chain (ring 2^17, depth 32, prime pairs: Lq 68, K 23):
+    the first rescale's lift [2, 1, n] -> [2, 67, n] and division of a
+    [:, :67] view of [2, 68, n] planes, and ModDown's division at level 0 of
+    a [..., :68, :] view of [2, 91, n]; the coefficients hold the centring's
+    edges.  Times each launch (device, a mean of 20 after a warm-up) beside
+    its byte bound at 3.35 TB/s, and the plain PyTorch chain it replaced;
+    its launches are not counted.  Returns K3's record for the kernels'
+    JSON, with the largest difference from the plain versions."""
+    from fhe_sorting_tpu_torch.core import rns_div
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.utils.roofline import H100
+
+    ctx = Context(CkksParams(ring_n=RING, mult_depth=32, scale_bits=56, comp=2, base_limbs=4,
+                             dnum=3, ntt_impl="butterfly"))
+    rows, ks = ctx.rescale_rows(0), ctx.ks_rows(0)
+    Lq, r, q = ctx.num_q, ctx.num_q - 1, ctx.q_primes[-1]
+    gen = torch.Generator(device=ctx.device)
+    gen.manual_seed(17)
+    x = torch.randint(0, q, (2, 1, RING), generator=gen, device=ctx.device)
+    half = rows.qlast_half
+    x[0, 0, :5] = torch.tensor([0, 1, half - 1, half, q - 1], device=ctx.device)
+    data = _rand_residues(gen, (2, Lq, RING), ctx.p_active(0))
+    b = _rand_residues(gen, (2, r, RING), rows.p)
+    c = _rand_residues(gen, (2, Lq + ctx.num_sp, RING), ks.p_target)
+    ext = _rand_residues(gen, (2, Lq, RING), ks.p_active)
+    calls = {
+        "lift": (lambda: rns_div.lift(x, rows.p, rows.qlast_mod_qi, half),
+                 lambda: rns_div.lift_plain(x, rows.p, rows.qlast_mod_qi, half), 8 * 2 * r),
+        "rescale sub_scale": (
+            lambda: rns_div.sub_scale(data[:, :r], b, rows.p, rows.qlast_inv),
+            lambda: rns_div.sub_scale_plain(data[:, :r], b, rows.p, rows.qlast_inv), 24 * 2 * r),
+        "ModDown sub_scale": (
+            lambda: rns_div.sub_scale(c[..., :Lq, :], ext, ks.p_active, ks.p_inv_mod_qi),
+            lambda: rns_div.sub_scale_plain(c[..., :Lq, :], ext, ks.p_active, ks.p_inv_mod_qi),
+            24 * 2 * Lq),
+    }
+    ms, plain_ms, bound_ms, err = {}, {}, {}, 0
+    for name, (kernel, plain, nbytes) in calls.items():
+        got, want = kernel(), plain()
+        _sync()
+        diff = int((got - want).abs().max())
+        err = max(err, diff)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 {name} disagrees with its plain version: max |diff| {diff}")
+        ms[name] = _time_ms(kernel, 20)
+        plain_ms[name] = _time_ms(plain, 5)
+        bound_ms[name] = nbytes * RING / H100.hbm_bytes_s * 1e3
+        print(f"# K3 {name} == plain at [2, {got.shape[1]}, 2^17] (direct_n128's top, "
+              f"{'a strided view' if name != 'lift' else 'edges of the centring'}): kernel "
+              f"{ms[name]:.4f} ms, byte bound {bound_ms[name]:.4f} ms "
+              f"({100 * bound_ms[name] / ms[name]:.1f}% of it), the plain PyTorch chain "
+              f"{plain_ms[name]:.4f} ms ({smi})")
+    del ctx, data, b, c, ext, x
+    _release()
+    rescale = ("lift", "rescale sub_scale")
+    print(f"# K3 one dropped limb's rescale at direct_n128's top: kernels "
+          f"{sum(ms[k] for k in rescale):.4f} ms against {sum(plain_ms[k] for k in rescale):.4f} "
+          f"ms by the plain chain; bound {sum(bound_ms[k] for k in rescale):.4f} ms")
+    return {"ms": sum(ms[k] for k in rescale), "plain_ms": sum(plain_ms[k] for k in rescale),
+            "bound_ms": sum(bound_ms[k] for k in rescale), "moddown_ms": ms["ModDown sub_scale"],
+            "moddown_plain_ms": plain_ms["ModDown sub_scale"],
+            "moddown_bound_ms": bound_ms["ModDown sub_scale"], "max_abs_err": err}
 
 
 def _quiet(buf, fn):
@@ -1249,7 +1351,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu
+    from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu, rns_div
     from fhe_sorting_tpu_torch.core import primes as primes_mod
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
@@ -1271,10 +1373,11 @@ def main() -> int:
 
     # -- phase 2: build K1 and K2 ----------------------------------------------
     t0 = time.time()
-    cuda_build.build(["fs_ntt", "bf_ntt"])
+    cuda_build.build(["fs_ntt", "bf_ntt", "rns_div"])
     fs_ntt.load()
     bf_ntt.load()
-    print(f"# K1 + K2 build (in parallel) + load: {time.time() - t0:.2f}s")
+    rns_div.load()
+    print(f"# K1 + K2 + K3 build (in parallel) + load: {time.time() - t0:.2f}s")
     for name, (secs, report) in cuda_build.reports.items():
         print(f"# nvcc {name}.cu: {secs:.2f}s")
         print("# " + report.strip().replace("\n", "\n# "))
@@ -1403,20 +1506,25 @@ def main() -> int:
             label=f"{label} N={N}")
         srt = StagedDirectSort(ev, N, cfg, graphs=graphs)
         staged[label] = (srt, *_run_sort(label, keys, ct, vals, srt, srt.construct_rank,
-                                         srt.index_check, (fs_ntt, bf_ntt), smi, report))
-        k1_count, k2_stray = staged[label][1]
-        print(f"# {label}: K1 launches {k1_count}, K2 launches {k2_stray}; stage calls: "
-              f"{ {name: st.calls for name, st in srt.stages.items()} }")
+                                         srt.index_check, (fs_ntt, bf_ntt, rns_div), smi,
+                                         report))
+        k1_count, k2_stray, k3_count = staged[label][1]
+        print(f"# {label}: K1 launches {k1_count}, K2 launches {k2_stray}, K3 launches "
+              f"{k3_count}; stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
         if k1_count <= 0 or k2_stray != 0:
             raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
+        _require_k3(label, k3_count)
         del srt
         _release()
-    (_, (k1_eager, _), eager_s, _, out_e, _), (srt, (k1_launches, _), staged_s, phase_s, out_g,
-                                               (warm_s, warm_peak, peak)) = staged.values()
+    (_, (k1_eager, _, k3_eager), eager_s, _, out_e, _), (
+        srt, (k1_launches, _, k3_graphs), staged_s, phase_s, out_g,
+        (warm_s, warm_peak, peak)) = staged.values()
     if not torch.equal(out_e.data, out_g.data):
         raise AssertionError("staged: the sort on graphs differs from the eager sort")
     if k1_launches != k1_eager:
         raise AssertionError(f"staged: K1 launches on graphs {k1_launches} != eager {k1_eager}")
+    if k3_graphs != k3_eager:
+        raise AssertionError(f"staged: K3 launches on graphs {k3_graphs} != eager {k3_eager}")
     print(f"# staged N={N} on K1: eager {eager_s:.3f}s, on graphs {staged_s:.3f}s (output planes "
           f"equal); {srt.stages.graph_count()} graphs, captured in {srt.stages.capture_seconds():.2f}s "
           f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {k1_launches} (replay tallies); "
@@ -1427,7 +1535,7 @@ def main() -> int:
 
     # -- phase 15: the gather-free automorphism on phase 5's context and keys
     k1_affine, k2_phase15 = _phase15_affine(ctx, keys, ct, vals, cfg, out_g, (eager_s, staged_s),
-                                            (fs_ntt, bf_ntt), smi)
+                                            (fs_ntt, bf_ntt, rns_div), smi)
     del keys, ctx, fs, k1, ct, out_g
     _release()
 
@@ -1443,22 +1551,20 @@ def main() -> int:
     _sync()
     print(f"# per-op: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    (k1_stray, k2_launches), per_op_s, *_ = _run_sort(
+    counters = (fs_ntt, bf_ntt, rns_div)
+    counts, per_op_s, *_ = _run_sort(
         "per-op", keys, keys.encrypt(vals), vals,
         lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
         lambda ct: srt.construct_rank(ct, SignFunc.CompositeSign, cfg),
-        srt.rotation_index_check_n, (fs_ntt, bf_ntt), smi, report)
-    print(f"# per-op: K2 launches {k2_launches}, K1 launches {k1_stray}; "
-          f"over the three sorts: {srt.rot.stats}")
-    if k2_launches <= 0 or k1_stray != 0:
-        raise AssertionError("the per-op butterfly path must launch K2 and not K1")
+        srt.rotation_index_check_n, counters, smi, report)
+    k2_launches = _require_k2_only("per-op", counts)
+    print(f"# per-op: over the three sorts: {srt.rot.stats}")
     print(f"# sorts side by side: staged on K1 {staged_s:.3f}s on graphs, {eager_s:.3f}s "
           f"eager; per-op on K2 {per_op_s:.3f}s ({smi})")
     del srt, ev
 
     # -- phases 7-14: the serving path, the scan sorts, what stands behind the
     # server, the k-way network, the staged N>256 regimes, the sharded sorts ---
-    counters = (fs_ntt, bf_ntt)
     by_phase = {"per-op sort": k2_launches}
     by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
     del keys
@@ -1475,7 +1581,8 @@ def main() -> int:
         by_phase[name] = phase(counters, smi)
         _release()
     # -- phase 16: the entry points of the system's own measurements --------
-    k1_entry, by_phase["bench, run_bootstrap"], k1_err16 = _phase16_entry_points(counters, smi)
+    k1_entry, by_phase["bench, run_bootstrap"], k1_err16, k3 = _phase16_entry_points(counters,
+                                                                                       smi)
     k1_err = max(k1_err, k1_err16)
     _release()
     k2_launches = sum(by_phase.values())
@@ -1483,6 +1590,8 @@ def main() -> int:
           f"gather, {k1_affine} on the affine path (each a sort on graphs), {k1_entry} in phase "
           f"16 (the bench's timed sort and the bootstrap harness's refresh)")
     k1_launches += k1_affine + k1_entry
+    print(f"# K3 launches by counted run: {K3_RUNS}; K3's largest difference from its plain "
+          f"versions {k3['max_abs_err']} (phase 16)")
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",
@@ -1499,6 +1608,14 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "form_ops_ms": k2_form_ms,
          "library_ms": None},
+        {"name": "rns_div (exact division by a dropped modulus, K3; one dropped limb's rescale "
+                 "at direct_n128's top, [2, 67, 2^17])", "route": "cuda",
+         "source": "fhe_sorting_tpu_torch/csrc/rns_div.cu", "replaces": None,
+         "launches": sum(K3_RUNS.values()), "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": "bytes", "form_ops_ms": None, "library_ms": None,
+         "moddown_ms": k3["moddown_ms"], "moddown_plain_ms": k3["moddown_plain_ms"],
+         "moddown_bound_ms": k3["moddown_bound_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ exact modular matmul, NTT of every digit in one batched call), the inner
 product with the key, then ModDown (division by P).  Every NTT goes through
 `core/ntt.py`, which on a GPU launches the CUDA kernel of the context's
 tables: K1 (four-step) or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
-sliced or copied per op.
+sliced or copied per op.  The exact division by a dropped modulus, in every
+rescale (by q_last) and at the end of ModDown (by P), goes through
+`core/rns_div.py`, which on a GPU launches K3 on either side of the NTT.
 
 The key switch and the rescale compute the rows `Context.ks_rows` and
 `Context.rescale_rows` give for `limb_part` ((1, 0) here: every row), and
@@ -54,7 +56,7 @@ import numpy as np
 import torch
 
 from . import ntt as nttm
-from . import trace
+from . import rns_div, trace
 from .auto_affine import apply_affine
 from .cipher import Ciphertext, Plaintext
 from .context import Context, FrozenError
@@ -338,10 +340,9 @@ class Evaluator:
             Ll = ctx.limbs_at(lvl) - j
             rows = ctx.rescale_rows(lvl * comp + j, *self.limb_part)
             x, rest = self._drop_limb(data, Ll - 1)                      # [2,1,n]
-            xm = torch.remainder(x, rows.p)
-            t = torch.where(x >= rows.qlast_half, sub_mod(xm, rows.qlast_mod_qi, rows.p), xm)
-            num = sub_mod(rest, self._ntt(t, rows.limbs, "rescale"), rows.p)
-            data = mulmod(num, rows.qlast_inv, rows.p)
+            t = rns_div.lift(x, rows.p, rows.qlast_mod_qi, rows.qlast_half)
+            data = rns_div.sub_scale(rest, self._ntt(t, rows.limbs, "rescale"), rows.p,
+                                     rows.qlast_inv)
         return replace(a, data=data, level=lvl + 1)
 
     def _rescale_impl(self, a: Ciphertext) -> Ciphertext:
@@ -466,7 +467,7 @@ class Evaluator:
         cp = self._intt(c[..., a:, :], rows.special, "moddown")
         y = self._gather_rows(mulmod(cp, rows.phat_inv, p_s), ctx.num_sp)
         ext = self._ntt(mod_matmul(rows.pext, y, p_a), rows.active, "moddown")
-        return mulmod(sub_mod(c[..., :a, :], ext, p_a), rows.p_inv_mod_qi, p_a)
+        return rns_div.sub_scale(c[..., :a, :], ext, p_a, rows.p_inv_mod_qi)
 
     def _keyswitch_core(self, d_limb, level: int, ksk: KeySwitchKey):
         acc0, acc1 = self._inner_product(self._modup(d_limb, level), level, ksk)

@@ -12,7 +12,7 @@ an evaluator op.  It holds
   device    (start, end) nanoseconds of its device work on the same clock,
             or None where the span was opened without a device
   counts    what the code recorded at the same boundary (a dispatch's
-            `kind`, NTT `planes`, K1 and K2 `launches`, `ops`)
+            `kind`, NTT `planes`, K1, K2 and K3 `launches`, `ops`)
 
 Spans are recorded inside `recording()`, an operator's explicit window, and
 whenever a `torch.profiler` session is recording: the first span opened in

@@ -3,8 +3,9 @@
 Port of `fhe_sorting_tpu/parallel/whole_jit.py`.  The JAX package compiles
 each stage of a staged sort into one XLA program with the keys and tables
 as arguments, so a stage is one dispatch.  Here a stage is one CUDA graph
-(`torch.cuda.CUDAGraph`): its kernels (K1 or K2 for every NTT, cuBLAS for
-the base extensions, PyTorch's elementwise kernels) are captured once and
+(`torch.cuda.CUDAGraph`): its kernels (K1 or K2 for every NTT, K3 for the
+rescales' and ModDown's divisions, cuBLAS for the base extensions, PyTorch's
+elementwise kernels) are captured once and
 replayed, so a stage costs one graph launch instead of thousands of kernel
 launches from Python.
 
@@ -36,8 +37,8 @@ calls, as the JAX package passes a sharded step its checking vectors):
     (the `StageTable`'s prefix), whose device interval brackets the
     copy-in, the replay and the clone-out (or the eager call) and whose
     counts are its `kind` ("eager", "capture": the first call on graphs,
-    or "replay"), the NTT `planes` and the K1 and K2 launches (`k1`,
-    `k2`) it ran, and the `ops` of its tally; a capture is a child span
+    or "replay"), the NTT `planes` and the K1, K2 and K3 launches (`k1`,
+    `k2`, `k3`) it ran, and the `ops` of its tally; a capture is a child span
     `<sort>.<stage>.capture` without a device interval;
   * nothing falls back: on a CUDA context a failed capture raises.
 
@@ -67,12 +68,12 @@ from dataclasses import replace
 
 import torch
 
-from ..core import bf_ntt, fs_ntt, trace
+from ..core import bf_ntt, fs_ntt, rns_div, trace
 from ..core.cipher import Ciphertext
 from ..core.keys import KeySwitchKey
 
 # the kernel modules whose `launches` counters a replay advances
-KERNELS = (fs_ntt, bf_ntt)
+KERNELS = (fs_ntt, bf_ntt, rns_div)
 
 
 def use_graphs(ev, graphs: bool | None) -> bool:
@@ -187,6 +188,7 @@ class WholeGraph:
             out = run(cts)
             sp.counts.update(kind=kind, planes=self.ev.ntt_planes.total() - planes,
                              k1=fs_ntt.launches - launches[0], k2=bf_ntt.launches - launches[1],
+                             k3=rns_div.launches - launches[2],
                              ops=sum(self.op_counts.values()))
             return out
 

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels K1 and K2, and its import hygiene.
+"""The port's hand-written CUDA kernels K1, K2 and K3, and its import hygiene.
 
 The kernels against their plain PyTorch versions need a CUDA device and
 nvcc: marked `cuda`, they skip elsewhere (the card runs them, and
@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -101,6 +102,130 @@ def test_k2_matches_plain_on_card(ring, bits, subset):
     with pytest.raises(ValueError):
         bf_ntt.butterfly(x.to(torch.int32), t, limbs, inverse=False)
 
+
+
+def _k3_case(ring, r, bits, B, subset, seed):
+    """(x, q, kept primes [r', 1], a view [:, :r'] of larger planes, b) on
+    the card for K3: r + 1 primes, the last one dropped, the kept rows every
+    one or, for a limb rank's, those `subset` picks; x holds the centring's
+    edges, a and b the residues 0 and p - 1."""
+    from fhe_sorting_tpu_torch.core import primes
+
+    ps = primes.ntt_primes(ring, bits, r + 1)
+    q, kept = ps[-1], list(ps[:-1])[subset]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.tensor(kept, dtype=torch.int64, device="cuda")[:, None]
+    x = torch.randint(0, q, (B, 1, ring), generator=gen, device="cuda")
+    half = (q + 1) // 2
+    x[0, 0, :5] = torch.tensor([0, 1, half - 1, half, q - 1], device="cuda")
+    m = len(kept)
+    big = torch.remainder(torch.randint(0, 1 << 62, (B, m + 3, ring), generator=gen,
+                                        device="cuda"), torch.cat([p, p[:3]]))
+    b = torch.remainder(torch.randint(0, 1 << 62, (B, m, ring), generator=gen, device="cuda"), p)
+    big[:, :m, 0], b[:, :, 1] = 0, (p - 1)[:, 0]
+    return x, q, kept, p, big[:, :m], b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring,r,bits,B,subset", [
+    (1 << 17, 67, 30, 2, slice(None)),        # direct_n128's first rescale: 68 limbs
+    (1 << 17, 95, 30, 2, slice(None)),        # mehp24_n512's: 96 limbs
+    (1 << 17, 5, 28, 2, slice(None)),         # a deep level
+    (1 << 17, 67, 30, 1, slice(None)),        # B = 1
+    (1 << 17, 67, 31, 2, slice(1, None, 2)),  # one of two limb ranks' rows, 31-bit primes
+    (1 << 12, 3, 28, 2, slice(None)),         # a small ring: one block a row
+])
+def test_k3_matches_plain_on_card(ring, r, bits, B, subset):
+    """K3's lift and sub_scale against their plain versions, bit for bit, at
+    the cells' top-of-chain shapes, a deep level, B = 1, a limb rank's rows
+    and a small ring, with `a` a strided view and the rows' constants
+    contiguous or strided; one launch each; zero rows launch nothing; no
+    fallback for what the kernel does not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("K3 is a CUDA kernel: needs a CUDA device")
+    from fhe_sorting_tpu_torch.core import rns_div
+
+    x, q, kept, p, a, b = _k3_case(ring, r, bits, B, subset, ring + r)
+    c = torch.remainder(torch.tensor(q, device="cuda"), p)
+    w = torch.tensor([[pow(q, -1, pi)] for pi in kept], dtype=torch.int64, device="cuda")
+    half = (q + 1) // 2
+    assert B == 1 or not a.is_contiguous()
+    # the constants as the limb-parallel rows hold them: strided views [r, 1]
+    cw = torch.cat([c, w, p], dim=1)
+    cv, wv, pv = cw[:, 0:1], cw[:, 1:2], cw[:, 2:3]
+    assert pv.stride(0) == 3
+    before = rns_div.launches
+    t = rns_div.lift(x, p, c, half)
+    out = rns_div.sub_scale(a, b, p, w)
+    torch.cuda.synchronize()
+    assert rns_div.launches == before + 2
+    assert torch.equal(t, rns_div.lift_plain(x, p, c, half))
+    assert torch.equal(out, rns_div.sub_scale_plain(a, b, p, w))
+    assert torch.equal(rns_div.lift(x, pv, cv, half), t)
+    assert torch.equal(rns_div.sub_scale(a, b, pv, wv), out)
+    assert rns_div.lift(x, p[:0], c[:0], half).shape == (B, 0, ring)
+    assert rns_div.sub_scale(a[:, :0], b[:, :0], p[:0], w[:0]).shape == (B, 0, ring)
+    assert rns_div.launches == before + 4
+    with pytest.raises(ValueError):       # every other residue: no plain fallback
+        rns_div.sub_scale(a[..., ::2], b[..., ::2], p, w)
+    with pytest.raises(ValueError):
+        rns_div.lift(x.to(torch.int32), p, c, half)
+
+
+@pytest.mark.cuda
+def test_k3_in_evaluator_and_graphs_on_card():
+    """A rescale (comp 2: two dropped limbs) and a ModDown on the card give
+    the CPU evaluator's planes on the same inputs, through K3 (two launches a
+    dropped limb, one a ModDown, no int64 remainder left); a stage of two
+    rescales on a CUDA graph replays to the eager planes, and its replay
+    advances `rns_div.launches` and its span's `k3` as the eager call did."""
+    if not torch.cuda.is_available():
+        pytest.skip("K3 is a CUDA kernel: needs a CUDA device")
+    from fhe_sorting_tpu_torch.core import rns_div, trace
+    from fhe_sorting_tpu_torch.core.cipher import Ciphertext
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.parallel.whole_graph import WholeGraph
+
+    params = CkksParams(ring_n=1 << 12, mult_depth=4, scale_bits=56, comp=2, base_limbs=4)
+    evs = {}
+    for dev in ("cpu", "cuda"):
+        ctx = Context(params, device=dev)
+        evs[dev] = Evaluator(ctx, Keys.generate(ctx, seed=0))
+    ctx = evs["cpu"].ctx
+    level, n = 1, params.ring_n
+    rng = np.random.default_rng(0)
+    ps = np.array(ctx.all_primes, dtype=np.int64)
+    data = rng.integers(0, 1 << 62, (2, ctx.limbs_at(level), n)) % ps[:ctx.limbs_at(level), None]
+    c = rng.integers(0, 1 << 62, (2, ctx.limbs_at(level) + ctx.num_sp, n))
+    c %= np.concatenate([ps[:ctx.limbs_at(level)], ps[ctx.num_q:]])[:, None]
+    got = {}
+    for dev, ev in evs.items():
+        before = rns_div.launches
+        ct = Ciphertext(torch.from_numpy(data).to(dev), level, 2, n // 2)
+        got[dev] = (ev.rescale(ct).data, ev._moddown(torch.from_numpy(c).to(dev), level))
+        torch.cuda.synchronize()
+        assert rns_div.launches - before == (0 if dev == "cpu" else 2 * params.comp + 1)
+    for g_cpu, g_card in zip(got["cpu"], got["cuda"]):
+        assert torch.equal(g_card.cpu(), g_cpu)
+
+    ev = evs["cuda"]
+    ct = Ciphertext(torch.from_numpy(data).cuda(), level, 2, n // 2)
+    stage = WholeGraph(ev, lambda cts: ev.rescale(ev.mult(ev.rescale(cts[0]), 1.0)),
+                       name="k3.rescales")
+    want = stage([ct])                                  # eager, then the capture
+    launched = []
+    with trace.recording():
+        for _ in range(2):
+            before = rns_div.launches
+            out = stage([ct])                           # replays
+            torch.cuda.synchronize()
+            launched.append(rns_div.launches - before)
+            assert torch.equal(out.data, want.data)
+    spans = [s for s in trace.spans() if s.name == "k3.rescales"]
+    assert launched == [4 * params.comp] * 2
+    assert [(s.counts["kind"], s.counts["k3"]) for s in spans] == [("replay", 4 * params.comp)] * 2
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port (and
