@@ -14,22 +14,25 @@ runner and stage table: the rank prep and rotations, per (b, k) the
 indicator's sign iterations over both branches and the combine, per b the
 binary-path folds in segments, and the final sum.  A stage whose closure
 bakes in a host value (a batch's offset, mask or ladder) is named per batch.
-The two key sets are swapped between the phases, so a second sort finds
-new keys and captures the stages that read them anew (`WholeGraph`).
-The placement's key basis is `hybrid_staged_keys`: a caller that keys
-constructRank with `scan_rotation_indices` drops those keys and generates
-these between the two phases, so the device holds one set at a time.
+The sort's key set is `hybrid_rotation_indices`: constructRank's scan keys
+and the placement's basis, held together (16 rotation keys and relin at
+N=512, ring 2^17: 19.9 GiB at depth 48, dnum 5).  Given once, they serve
+every sort, so a second sort on one evaluator replays every stage's graph
+and captures none.  While `core/trace.py` records, the placement is the
+span `hybrid.rotation_index_check` over its stages' dispatch spans
+(`hybrid.Hprep`, ..., `hybrid.Hfin`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..core import trace
 from ..core.cipher import Ciphertext
 from ..models.direct_sort import DirectSort
 from ..ops.rotation import RotationComposer
 from ..ops.sign import F3, G3, SignConfig, eval_odd_poly7
-from .direct_staged import StagedDirectSort
+from .direct_staged import StagedDirectSort, scan_rotation_indices
 
 
 def hybrid_staged_keys(N: int, ring_n: int, max_array: int = 256) -> set:
@@ -53,6 +56,12 @@ def hybrid_staged_keys(N: int, ring_n: int, max_array: int = 256) -> set:
         p *= 4
     ks.discard(0)
     return ks
+
+
+def hybrid_rotation_indices(N: int, ring_n: int, max_array: int = 256) -> set:
+    """The hybrid sort's whole key set: constructRank's scan keys and the
+    placement's basis (16 steps at N=512, ring 2^17)."""
+    return scan_rotation_indices(N, ring_n) | hybrid_staged_keys(N, ring_n, max_array)
 
 
 class StagedHybridSort:
@@ -92,6 +101,10 @@ class StagedHybridSort:
     def place(self, rank: Ciphertext, ct: Ciphertext) -> Ciphertext:
         """rotationIndexCheckHybrid (sort_algo.h:893-1047), staged: one stage
         per sign iteration over both indicator branches."""
+        with trace.span("hybrid.rotation_index_check", self.ev.ctx.device):
+            return self._place(rank, ct)
+
+    def _place(self, rank: Ciphertext, ct: Ciphertext) -> Ciphertext:
         ev, N = self.ev, self.N
         num_slots, num_batch, size = self.num_slots, self.num_batch, self.size
         stretch = 1.0 + 8.0 / N

@@ -25,8 +25,8 @@ calls, as the JAX package passes a sharded step its checking vectors):
   * the graph holds every memoised tensor and key-switch key its capture
     read, as `WholeJit` takes keys as arguments, so no memo eviction frees
     what a replay reads.  Where a key it read is no longer one of the
-    evaluator's (a sort that swaps key sets between its phases), the graph
-    is dropped and the call runs as a first call again;
+    evaluator's (the key set was changed under it), the graph is dropped
+    and the call runs as a first call again;
   * `op_counts` is the capture's per-dispatch op tally (the evaluator's
     `op_stats` is restored after it, as `WholeJit` restores it after its
     abstract pass) and `calls` counts dispatches.  The kernel modules'
@@ -281,14 +281,6 @@ class StageTable(dict):
             st = self[name] = WholeGraph(self.ev, fn, self.graphs, self.graph_set,
                                          f"{self.prefix}.{name}")
         return st(cts)
-
-    def release(self):
-        """Drop every stage's graph, and with it what the graph holds (its
-        buffers, its outputs, the keys and memoised tensors it read); the
-        next call of a stage captures it anew.  A sort that swaps key sets
-        calls this before it drops a set, so no graph keeps it alive."""
-        for st in self.values():
-            st._drop()
 
     def tally(self) -> Counter:
         """Every stage's op tally over its calls so far, summed."""

@@ -105,9 +105,13 @@ WORK_CTS = {
     # within the 31.50 GiB reckoned with its 1.59 GiB of four-step tables
     # (`ntt_table_bytes`)
     "direct_staged_graphs": 134,
-    # staged hybrid N=512, 20.12 GiB: 11 keys x 1.172 + 8 cts x 0.195 GiB
-    # (`chip_smoke.py` phase 12)
-    "hybrid_staged_graphs": 30,
+    # staged hybrid N=512 with its whole key set held and every graph kept
+    # across sorts, 30.45 GiB in a sort of replays (30.17 in the warm-up):
+    # 17 keys x 1.172 + 8 cts x 0.195 GiB, 45.9 cts rounded up, one to spare
+    # (`large_sort --n 512 --path hybrid`, butterfly); where the two phases'
+    # key sets were swapped and the graphs dropped between them, 20.12 GiB
+    # over 11 keys fitted 30
+    "hybrid_staged_graphs": 47,
     # staged MEHP24 N=512, 25.61 GiB: 17 keys x 0.9375 + 12 cts x 0.1875 GiB
     # (phase 12); refitted with one ciphertext above a later run's 25.69 GiB,
     # which reached the first fit

@@ -12,11 +12,12 @@ keys nothing up front and lets the sort's RotationComposer generate each
 rotation key just in time on the device, at most 8 of them resident;
 `staged` keys the minimal scan set; both are `profile_sort`'s configuration
 (ring 2^17, scale 2^56 with comp 2, the depth from the depth meter).
-`hybrid` is the staged hybrid sort over 256-wide tiles (`staged_hybrid`),
-and `--algo mehp24_staged` the MEHP24 triangle over sub-length 256
-(`staged_mehp24`).  All run on the butterfly NTT; the staged ones run on
-CUDA graphs (`parallel/whole_graph.py`), or eagerly with `--eager`, and
-print the graphs' capture seconds.  Prints the card, the
+`hybrid` is the staged hybrid sort over 256-wide tiles (`staged_hybrid`,
+its two phases' keys held together), and `--algo mehp24_staged` the MEHP24
+triangle over sub-length 256 (`staged_mehp24`).  All run on the butterfly
+NTT; the staged ones run on CUDA graphs (`parallel/whole_graph.py`), or
+eagerly with `--eager`, and print the graphs' capture seconds and the timed
+sort's phases and dispatches by kind (on graphs, replays only).  Prints the card, the
 reckoned and the measured peak memory, seconds of a warm-up sort and of a
 timed one, and the max error against np.sort; exits non-zero on an error
 >= 0.01, and raises where the peak exceeds the reckoning's budget.
@@ -31,9 +32,13 @@ from __future__ import annotations
 import argparse
 import math
 import time
+from collections import Counter
+from contextlib import nullcontext
 
 import numpy as np
 import torch
+
+from ..core import trace
 
 LAZY_KEY_BUDGET = 8
 TILE = 256                       # the reference's tile: 256 values, 256x256 slots
@@ -50,16 +55,6 @@ def _context(depth: int, dnum: int, ntt: str = "butterfly"):
     if logqp > LOGQP_128:
         raise ValueError(f"logQP {logqp:.1f} exceeds the 128-bit budget {LOGQP_128}")
     return ctx, logqp
-
-
-def _hold_rotation_keys(keys, steps):
-    """Keep exactly the rotation keys of `steps`: drop the others, generate
-    the missing ones."""
-    ctx = keys.ctx
-    want = {ctx.galois_element_rot(s % (ctx.params.ring_n // 2)): s for s in steps}
-    for g in [g for g in keys.rot if g not in want]:
-        del keys.rot[g]
-    keys.gen_rotation_keys(sorted(s for g, s in want.items() if g not in keys.rot))
 
 
 def _metered_depth(make_sort, slots: int) -> int:
@@ -98,58 +93,36 @@ def mehp24_plan(total: int):
                                 TILE * TILE) + 1
 
 
-def staged_hybrid(N: int, graphs: bool | None = None):
+def staged_hybrid(N: int, graphs: bool | None = None, ntt: str = "butterfly"):
     """(ctx, keys, sort, info) of the staged hybrid DirectSort of N values
     over 256-wide tiles at ring 2^17 (`hybrid_plan`), dnum 5 (logQP 3396.8
-    at depth 48 and N=512).  `sort(ct)` holds constructRank's scan keys, ranks,
-    swaps them for the placement basis, and places, so the device holds one
-    key set at a time; `info["phase_s"]` has the last sort's seconds by
-    phase."""
+    at depth 48 and N=512), on the NTT `ntt` names.  Its whole key set,
+    `hybrid_rotation_indices` (constructRank's and the placement's, 16 keys
+    at N=512), is made once here and held: every sort after the first
+    replays the stages' graphs."""
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
-    from ..parallel.direct_staged import scan_rotation_indices
-    from ..parallel.hybrid_staged import StagedHybridSort, hybrid_staged_keys
+    from ..parallel.hybrid_staged import StagedHybridSort, hybrid_rotation_indices
     from . import hbm_budget
     from .profile_sort import RING
 
     cfg, depth = hybrid_plan(N)
-    ctx, logqp = _context(depth, 5)
-    scan, place = scan_rotation_indices(N, RING), hybrid_staged_keys(N, RING, TILE)
+    ctx, logqp = _context(depth, 5, ntt)
+    steps = sorted(hybrid_rotation_indices(N, RING, TILE))
     nb = max(1, N // TILE)
-    work = hbm_budget.work_cts("hybrid_staged", graphs is not False)
-    reports = [hbm_budget.check_phase(ctx, len(scan), 4, work_cts=work, label="constructRank"),
-               # 2*nb rotated inputs + nb accumulators + rank + input
-               hbm_budget.check_phase(ctx, len(place), 3 * nb + 2, work_cts=work, label="place")]
+    # the input, the rank, 2*nb rotated inputs and nb accumulators
+    report = hbm_budget.check_phase(ctx, len(steps), 3 * nb + 2,
+                                    work_cts=hbm_budget.work_cts("hybrid_staged",
+                                                                 graphs is not False),
+                                    label="staged hybrid")
     keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(steps)
     srt = StagedHybridSort(Evaluator(ctx, keys), N, cfg, max_array=TILE, graphs=graphs)
-    info = dict(depth=depth, logqp=logqp, reports=reports, slots=N, phase_s={}, stages=srt.stages,
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=N, stages=srt.stages,
                 what=f"staged hybrid DirectSort N={N} over {TILE}-wide tiles "
-                     f"(indicator dg {srt.dgi}, {len(scan)} scan keys, then {len(place)} "
-                     f"placement keys)")
-
-    def stamp(t):
-        if ctx.device.type == "cuda":
-            torch.cuda.synchronize(ctx.device)
-        t.append(time.time())
-
-    def sort(ct):
-        t = [time.time()]
-        # a graph holds the keys it read: drop the graphs before their keys go
-        srt.stages.release()
-        _hold_rotation_keys(keys, scan)
-        stamp(t)
-        rank = srt.base.construct_rank(ct)
-        stamp(t)
-        srt.stages.release()
-        _hold_rotation_keys(keys, place)
-        stamp(t)
-        out = srt.place(rank, ct)
-        stamp(t)
-        info["phase_s"] = dict(zip(("scan keys", "constructRank", "placement keys", "place"),
-                                   np.diff(t)))
-        return out
-
-    return ctx, keys, sort, info
+                     f"(indicator dg {srt.dgi}; {len(steps)} keys, constructRank's and the "
+                     f"placement's, held together)")
+    return ctx, keys, srt, info
 
 
 def staged_mehp24(total: int, graphs: bool | None = None, ntt: str = "butterfly"):
@@ -175,7 +148,7 @@ def staged_mehp24(total: int, graphs: bool | None = None, ntt: str = "butterfly"
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
     srt = StagedMehp24Multi(Evaluator(ctx, keys), total, TILE, *sign, graphs=graphs)
-    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE,
                 stages=srt.stages, what=f"staged MEHP24 N={total} over {k} tiles of {TILE}x{TILE} "
                      f"(dg_c {sign[0]}, df_c {sign[1]}, dg_i {sign[2]}, df_i {sign[3]}; "
                      f"{len(steps)} keys)")
@@ -219,8 +192,7 @@ def sharded_direct(N: int, mesh, graphs: bool | None = None):
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
     srt = ShardedDirectSort(Evaluator(ctx, keys), N, cfg, mesh=mesh, graphs=graphs)
-    info = dict(depth=depth, logqp=logqp, reports=[report], slots=N, phase_s={},
-                stages=srt.stages,
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=N, stages=srt.stages,
                 what=f"sharded DirectSort N={N} ({nb} batches over {mesh.size()} rank(s); "
                      f"{len(steps)} rotation + {own} offset keys)")
     return ctx, keys, srt, info
@@ -252,8 +224,7 @@ def sharded_mehp24(total: int, mesh, graphs: bool | None = None):
     keys = Keys.generate(ctx, seed=0)
     keys.gen_rotation_keys(steps)
     srt = ShardedMehp24(Evaluator(ctx, keys), TILE, k, *sign, mesh=mesh, graphs=graphs)
-    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, phase_s={},
-                stages=srt.stages,
+    info = dict(depth=depth, logqp=logqp, reports=[report], slots=TILE * TILE, stages=srt.stages,
                 what=f"sharded MEHP24 N={total} over {k} parts of {TILE}x{TILE} "
                      f"({len(srt.pairs)} of {k * (k + 1) // 2} pairs on this rank; "
                      f"{len(keys.rot)} keys)")
@@ -349,27 +320,36 @@ def _main(args, mesh) -> int:
 
         def decrypt(out):
             return keys.decrypt(out, N)
+    stages = getattr(sort, "stages", None) or (info or {}).get("stages")
     secs, peaks = [], []
-    for _ in range(2):
+    for i in range(2):
         torch.cuda.reset_peak_memory_stats()
         lazy0 = rot.stats.lazy_keygens if rot else 0
-        t0 = time.time()
-        out = sort(inp)
-        torch.cuda.synchronize()
-        secs.append(time.time() - t0)
+        # the timed sort on graphs records its spans: its phases and its
+        # dispatches by kind
+        with trace.recording() if i and stages is not None and stages.graphs else nullcontext():
+            t0 = time.time()
+            out = sort(inp)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 2**30)
     lazy = (rot.stats.lazy_keygens - lazy0) if rot else 0
     peak = max(peaks)
-    stages = getattr(sort, "stages", None) or (info or {}).get("stages")
+    phases = ""
     if stages is not None:
+        spans = trace.spans() if stages.graphs else []
+        kinds = Counter(s.counts["kind"] for s in spans if "kind" in s.counts)
+        # on graphs the host runs ahead of the device: a phase's device interval
+        phases = ", ".join(f"{s.name} {(s.device[1] - s.device[0]) / 1e9:.2f}s"
+                           for s in spans
+                           if s.parent is None and "kind" not in s.counts and s.device)
         print(f"# stages {'on CUDA graphs' if stages.graphs else 'eager'}: {len(stages)} stages, "
               f"{stages.graph_count()} graphs held, capture {stages.capture_seconds():.2f}s "
-              f"(host seconds, in the warm-up); peak in the warm-up {peaks[0]:.2f} GiB, in the "
-              f"timed sort {peaks[1]:.2f} GiB ({smi})")
+              f"(host seconds, in the warm-up); the timed sort's dispatches {dict(kinds)}; peak "
+              f"in the warm-up {peaks[0]:.2f} GiB, in the timed sort {peaks[1]:.2f} GiB ({smi})")
     err = float(np.abs(decrypt(out) - np.sort(vals)).max())
     label = f"{args.algo} {args.path}" if args.algo == "direct" else args.algo
     label += " eager" if args.eager else ""
-    phases = ", ".join(f"{k} {v:.2f}s" for k, v in (info or {}).get("phase_s", {}).items())
     level = out[0].level if isinstance(out, list) else out.level
     print(f"# {label} N={N}: warm-up {secs[0]:.2f}s, timed {secs[1]:.2f}s"
           f"{f' ({phases})' if phases else ''}; max error {err:.3e}; lazy keygens in the timed "

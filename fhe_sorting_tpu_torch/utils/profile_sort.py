@@ -4,12 +4,15 @@
     python -m fhe_sorting_tpu_torch.utils.profile_sort --path staged
     python -m fhe_sorting_tpu_torch.utils.profile_sort --path staged --ntt butterfly
     python -m fhe_sorting_tpu_torch.utils.profile_sort --sort mehp24
+    python -m fhe_sorting_tpu_torch.utils.profile_sort --sort hybrid
 
 Builds the context (butterfly NTT for `per_op`, the default NTT for
 `staged`, or the one `--ntt` names), keys and sorter: the DirectSort at
-N=128, ring 2^17 (`--sort direct`, the default), or the staged MEHP24 sort
+N=128, ring 2^17 (`--sort direct`, the default), the staged MEHP24 sort
 at N=512 over two 256x256 tiles (`--sort mehp24`, staged only:
-`large_sort.staged_mehp24` on the default NTT).  Runs a warm-up sort, then
+`large_sort.staged_mehp24` on the default NTT), or the staged hybrid
+DirectSort at N=512 over two 256-wide tiles (`--sort hybrid`, staged only:
+`large_sort.staged_hybrid` on the default NTT).  Runs a warm-up sort, then
 one sort under the profiler, and prints: the sort's wall-clock with and
 without the profiler, the device time of all kernels and how many ran, the
 host's launch calls (kernel launches and graph launches), the share of the
@@ -260,17 +263,18 @@ def profile(sort, ct, label: str, smi: str, top: int = 12) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("per_op", "staged"), default=None,
-                    help="default: per_op for DirectSort, staged for MEHP24")
+                    help="default: per_op for DirectSort, staged for MEHP24 and the hybrid")
     ap.add_argument("--ntt", choices=("auto", "butterfly", "mxu"), default=None,
                     help="ntt_impl of the context (default: butterfly for per_op, auto for staged)")
-    ap.add_argument("--sort", choices=("direct", "mehp24"), default="direct",
-                    help="DirectSort N=128, or the staged MEHP24 sort N=512 (staged only)")
+    ap.add_argument("--sort", choices=("direct", "mehp24", "hybrid"), default="direct",
+                    help="DirectSort N=128, or the staged MEHP24 or hybrid sort N=512 (staged "
+                         "only)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_sort: no CUDA device")
-    args.path = args.path or ("staged" if args.sort == "mehp24" else "per_op")
-    if args.sort == "mehp24" and args.path != "staged":
-        raise SystemExit("profile_sort: MEHP24 runs staged only (--path staged)")
+    args.path = args.path or ("per_op" if args.sort == "direct" else "staged")
+    if args.sort != "direct" and args.path != "staged":
+        raise SystemExit(f"profile_sort: {args.sort} runs staged only (--path staged)")
 
     smi = card()
     ntt = args.ntt or ("butterfly" if args.path == "per_op" else "auto")
@@ -286,6 +290,17 @@ def main() -> int:
         pad[:N] = vals
         ct = keys.encrypt(pad, slots=TILE * TILE)
         runs = {"eager": sort, "graphs": StagedMehp24Multi(sort.ev, N, TILE, *sort.cfg)}
+    elif args.sort == "hybrid":
+        from ..parallel.hybrid_staged import StagedHybridSort
+        from .large_sort import TILE, staged_hybrid
+
+        N = 512
+        ctx, keys, sort, info = staged_hybrid(N, graphs=False, ntt=ntt)
+        depth = info["depth"]
+        vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
+        ct = keys.encrypt(vals, slots=N)
+        runs = {"eager": sort, "graphs": StagedHybridSort(sort.ev, N, sort.base.cfg,
+                                                          max_array=TILE, indicator_dg=sort.dgi)}
     else:
         N = 128
         ctx, cfg, depth = sort_context(N, args.path, ntt)

@@ -20,7 +20,8 @@ from fhe_sorting_tpu_torch.core.keys import Keys
 from fhe_sorting_tpu_torch.ops.rotation import DecomposeAlgo, Decomposer
 from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig
 from fhe_sorting_tpu_torch.parallel.direct_staged import scan_rotation_indices
-from fhe_sorting_tpu_torch.parallel.hybrid_staged import StagedHybridSort, hybrid_staged_keys
+from fhe_sorting_tpu_torch.parallel.hybrid_staged import (
+    StagedHybridSort, hybrid_rotation_indices, hybrid_staged_keys)
 from fhe_sorting_tpu_torch.parallel.mehp24_staged import StagedMehp24Multi, mehp24_staged_keys
 from fhe_sorting_tpu_torch.utils import large_sort
 from fhe_sorting_tpu_torch.utils.depth_meter import MeterEvaluator
@@ -37,6 +38,17 @@ MEHP = dict(total=16, sub=8, dg_c=2, df_c=2, dg_i=3, df_i=2, depth=40)
                                               (8, 512, 4), (256, 1 << 17, 256)])
 def test_hybrid_staged_keys_match_jax(N, ring, max_array):
     assert hybrid_staged_keys(N, ring, max_array) == jhyb.hybrid_staged_keys(N, ring, max_array)
+
+
+@pytest.mark.parametrize("N,ring,max_array", [(512, 1 << 17, 256), (1024, 1 << 17, 256),
+                                              (128, 1 << 17, 64), (8, 512, 4)])
+def test_hybrid_key_set_is_scan_and_placement(N, ring, max_array):
+    """The hybrid sort's one key set is constructRank's scan keys and the
+    placement's basis: 16 steps at N=512, ring 2^17."""
+    got = hybrid_rotation_indices(N, ring, max_array)
+    assert got == scan_rotation_indices(N, ring) | hybrid_staged_keys(N, ring, max_array)
+    if (N, ring) == (512, 1 << 17):
+        assert len(got) == 16
 
 
 @pytest.mark.parametrize("sub,ring", [(256, 1 << 17), (64, 1 << 17), (8, 512), (4, 256)])
@@ -101,8 +113,7 @@ def _hybrid_port(keys=None):
     if keys is None:
         keys = Keys.generate(Context(CkksParams(ring_n=RING, mult_depth=HYB["depth"]),
                                      device="cpu"), seed=0)
-        keys.gen_rotation_keys(sorted(scan_rotation_indices(HYB["N"], RING)
-                                      | hybrid_staged_keys(HYB["N"], RING, HYB["max_array"])))
+        keys.gen_rotation_keys(sorted(hybrid_rotation_indices(HYB["N"], RING, HYB["max_array"])))
     cfg = SignConfig(CompositeSignConfig(3, 3, 2))
     return keys, StagedHybridSort(Evaluator(keys.ctx, keys), HYB["N"], cfg,
                                   max_array=HYB["max_array"], indicator_dg=HYB["indicator_dg"])
@@ -136,6 +147,28 @@ def test_staged_hybrid_sort_two_tiles():
                for b in range(nb) for s in ("Hrot", "Hsub", "HplaceS"))
     assert all(calls[f"HplaceT{b}{part}"] == 1 for b in range(nb) for part in "abc")
     assert srt.base.stages["D"].calls == 1
+
+
+def test_second_hybrid_sort_keeps_its_keys(monkeypatch):
+    """Two sorts on one evaluator from keys given once: the second makes no
+    key, leaves the key set as it was, calls every stage once more and
+    gives the first's output bit for bit."""
+    keys, srt = _hybrid_port()
+    _, ct = _input(keys, HYB["N"], HYB["N"])
+    rot = dict(keys.rot)
+
+    def no_keys(*args, **kwargs):
+        raise AssertionError("a sort generated rotation keys")
+
+    monkeypatch.setattr(Keys, "gen_rotation_keys", no_keys)
+    first = srt(ct)
+    calls = {name: st.calls for name, st in srt.stages.items()}
+    second = srt(ct)
+    assert torch.equal(first.data, second.data)
+    assert (first.level, first.sdeg, first.slots) == (second.level, second.sdeg, second.slots)
+    assert keys.rot.keys() == rot.keys() and all(keys.rot[g] is k for g, k in rot.items())
+    assert {name: st.calls for name, st in srt.stages.items()} == {
+        name: 2 * c for name, c in calls.items()}
 
 
 def test_staged_mehp24_sort_two_tiles():

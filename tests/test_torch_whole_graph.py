@@ -297,6 +297,46 @@ def test_sorts_on_graphs_equal_eager_on_card(kind, n, ring, sign, request):
 
 
 @pytest.mark.cuda
+def test_second_hybrid_sort_only_replays_on_card():
+    """The staged hybrid sort of 8 values over two 4-wide tiles on graphs,
+    twice from keys given once (its one key set, constructRank's and the
+    placement's): the second sort's dispatches are all replays, its output
+    equals the first's bit for bit, and it runs the NTT planes and K1, K2
+    and K3 launches of the same sort run eagerly on the warm evaluator (the
+    first sort runs each stage eagerly before capturing it, and so also
+    encodes the plaintexts its memo then keeps)."""
+    _card()
+    from fhe_sorting_tpu_torch.core import trace
+    from fhe_sorting_tpu_torch.parallel.hybrid_staged import (
+        StagedHybridSort, hybrid_rotation_indices)
+
+    n, ring, tile = 8, 512, 4
+    keys = Keys.generate(Context(CkksParams(ring_n=ring, mult_depth=38)), seed=0)
+    keys.gen_rotation_keys(sorted(hybrid_rotation_indices(n, ring, tile)))
+    ev, cfg = Evaluator(keys.ctx, keys), SignConfig(CompositeSignConfig(3, 3, 2))
+    srt = StagedHybridSort(ev, n, cfg, max_array=tile, indicator_dg=2)
+    eager = StagedHybridSort(ev, n, cfg, max_array=tile, indicator_dg=2, graphs=False)
+    vals = np.random.default_rng(0).permutation(n) / n + 0.5 / n
+    ct = keys.encrypt(vals, seed=1)
+    runs = []
+    for run in (srt, srt, eager):
+        with trace.recording():
+            out = run(ct)
+            torch.cuda.synchronize()
+        runs.append((out, [s for s in trace.spans() if "kind" in s.counts]))
+    (first, d1), (second, d2), (want, d3) = runs
+    assert "capture" in {s.counts["kind"] for s in d1}
+    assert [s.name for s in d2] == [s.name for s in d1] == [s.name for s in d3]
+    assert all(s.counts["kind"] == "replay" for s in d2)
+    for what in ("planes", "k1", "k2", "k3"):
+        assert sum(s.counts[what] for s in d2) == sum(s.counts[what] for s in d3), what
+    assert sum(s.counts["planes"] for s in d2) > 0 and sum(s.counts["k3"] for s in d2) > 0
+    assert srt.stages.graph_count() == len(srt.stages)
+    assert torch.equal(first.data, second.data) and torch.equal(second.data, want.data)
+    assert float(np.abs(keys.decrypt(second, n) - np.sort(vals)).max()) < 0.01
+
+
+@pytest.mark.cuda
 def test_failed_capture_raises_on_card():
     """A stage that uploads on every call cannot be captured: the call
     raises, and nothing falls back to eager."""
