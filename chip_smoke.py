@@ -5,9 +5,10 @@
 Phases (each failure raises, and the script exits non-zero):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels K1 (four-step NTT on the s8 tensor cores), K2
-     (butterfly NTT in one pass through a thread-block cluster) and K3 (the
-     exact division by a dropped modulus) from `fhe_sorting_tpu_torch/csrc`,
-     one nvcc each, started together;
+     (butterfly NTT in one pass through a thread-block cluster), K3 (the
+     exact division by a dropped modulus) and K4 (the key switch's base
+     extension) from `fhe_sorting_tpu_torch/csrc`, one nvcc each, started
+     together;
   3. hold K1 against its plain PyTorch version on the card, bit for bit:
      ring 2^17 (n1=256, n2=512) on limbs of the N=128 chain and on a whole
      ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape;
@@ -114,13 +115,17 @@ Phases (each failure raises, and the script exits non-zero):
      < 1e-2; K3 against its plain versions, bit for bit, on the top of the
      `direct_n128` chain (ring 2^17, Lq 68: the first rescale's lift and
      division [2, 67, 2^17], ModDown's division [2, 68, 2^17]), timed beside
-     its byte bound and beside the plain PyTorch chain it replaced.
+     its byte bound and beside the plain PyTorch chain it replaced; K4
+     against its plain version, bit for bit, at the top ModUp and ModDown of
+     the `mehp24_n512` chain (Lq 96, four digits of 24, K 24) and the top
+     ModUp of `direct_n128`'s (a short last digit), on a strided view, timed
+     the same way.
 Phases 7-14 and 17 run butterfly contexts: each must launch K2 and never
 K1, with the counts set to 0 just before and read just after (in phase 17
 by each rank's process).  Every counted run of a main path (each a sort, a
-refresh or a run of rotations, so each rescales or switches keys) must also
-launch K3, as often on graphs as eagerly where it runs both ways; the
-kernels' JSON gives K3 the sum of those runs' launches.  Every phase from 5 on
+refresh or a run of rotations, so each rescales and switches keys) must also
+launch K3 and K4, as often on graphs as eagerly where it runs both ways; the
+kernels' JSON gives K3 and K4 the sums of those runs' launches.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
 budget.
@@ -281,17 +286,20 @@ def _release():
     torch.cuda.empty_cache()
 
 
-# K3's launches in each counted run of a main path, by the run's label
-K3_RUNS = {}
+# K3's and K4's launches in each counted run of a main path, by the run's label
+K3_RUNS, K4_RUNS = {}, {}
 
 
-def _require_k3(label, k3):
-    """Record K3's launches in the counted run `label`, which must have
-    launched it: every such run rescales or switches keys."""
+def _require_k34(label, k3, k4):
+    """Record K3's and K4's launches in the counted run `label`, which must
+    have launched both: every such run rescales and switches keys.  Returns
+    (k3, k4)."""
     if k3 <= 0:
         raise AssertionError(f"{label}: K3 was not launched")
-    K3_RUNS[label] = k3
-    return k3
+    if k4 <= 0:
+        raise AssertionError(f"{label}: K4 was not launched")
+    K3_RUNS[label], K4_RUNS[label] = k3, k4
+    return k3, k4
 
 
 def _counted(counters, fn):
@@ -308,11 +316,11 @@ def _counted(counters, fn):
 
 
 def _require_k2_only(label, counts):
-    k1, k2, k3 = counts
-    print(f"# {label}: K2 launches {k2}, K1 launches {k1}, K3 launches {k3}")
+    k1, k2, k3, k4 = counts
+    print(f"# {label}: K2 launches {k2}, K1 launches {k1}, K3 launches {k3}, K4 launches {k4}")
     if k2 <= 0 or k1 != 0:
         raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
-    _require_k3(label, k3)
+    _require_k34(label, k3, k4)
     return k2
 
 
@@ -732,7 +740,7 @@ def _phase12_staged_large(counters, smi, n=512):
               f"{secs0:.2f}s, second {secs:.2f}s ("
               + ", ".join(f"{k} {v:.2f}s" for k, v in phases.items())
               + f" on the device), {len(disp)} dispatches {kinds}, NTT planes {planes[1]} (first "
-              f"{planes[0]}), K1, K2, K3 launches {counts} (first {counts0}), output level "
+              f"{planes[0]}), K1, K2, K3, K4 launches {counts} (first {counts0}), output level "
               f"{out.level}; max sort error {err:.3e} ({smi})")
         _check_memory(label, max(info["reports"], key=lambda r: r["used_gib"]), peak, smi)
         if not np.all(np.isfinite(got)) or not err < 0.01:
@@ -771,7 +779,7 @@ def _both_ways(label, make, run, counters, smi, reports):
     graphs: a warm-up, then a sort counted with `_counted`, each way; every
     peak held to that way's reckoning (`reports[graphs]`).  Returns the
     counted outputs, the K2 launches of the sort on graphs, and the sort on
-    graphs.  The launches (K2 and K3) must agree both ways."""
+    graphs.  The launches (K1 to K4) must agree both ways."""
     outs, k2, launched = {}, {}, {}
     for graphs in (False, True):
         way = "on graphs" if graphs else "eager"
@@ -793,7 +801,7 @@ def _both_ways(label, make, run, counters, smi, reports):
         k2[graphs] = _require_k2_only(f"{label} {way}", counts)
         launched[graphs] = counts
     if launched[True] != launched[False]:
-        raise AssertionError(f"{label}: (K1, K2, K3) launches on graphs {launched[True]} != "
+        raise AssertionError(f"{label}: (K1, K2, K3, K4) launches on graphs {launched[True]} != "
                              f"eager {launched[False]}")
     return outs, k2[True], srt
 
@@ -870,8 +878,8 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     k2 += _require_k2_only("limb-parallel eager", counts_e)
     k2 += _require_k2_only("limb-parallel replay", counts)
     if counts != counts_e:
-        raise AssertionError(f"limb-parallel: (K1, K2, K3) launches replayed {counts} != eager "
-                             f"{counts_e}")
+        raise AssertionError(f"limb-parallel: (K1, K2, K3, K4) launches replayed {counts} != "
+                             f"eager {counts_e}")
     del ctx, keys, srt, info, ct, outs, ev, lp, table, y, plain, eager, staged
     _release()
 
@@ -940,11 +948,11 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
         for rank, r in enumerate(rs):
             label = f"limb-parallel N={n} (1 x {world}) rank {rank}"
             report = json.loads(str(r["report"]))
-            fs, bf, k3 = (int(x) for x in r["launches"])
+            fs, bf, k3, k4 = (int(x) for x in r["launches"])
             ks = [int(x) for x in r["ks_planes"]]
             print(f"# {label}: setup {float(r['setup_s']):.2f}s, sort {float(r['sort_s']):.3f}s "
                   f"(the first: its plaintexts encoded on the way); K2 launches {bf}, K1 {fs}, "
-                  f"K3 {k3}; "
+                  f"K3 {k3}, K4 {k4}; "
                   f"keys {int(r['n_keys'])} x its rows = {int(r['key_bytes']) / 2**30:.3f} GiB; "
                   f"NTT/INTT planes in ModUp, ModDown, rescale {ks} = {sum(ks)}, in plaintext "
                   f"encodes {int(r['pt_planes'])}; gathered {int(r['gathered']) * 8 / 2**20:.1f} "
@@ -953,7 +961,7 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
             _check_memory(label, report, float(r["peak_gib"]), smi)
             if bf <= 0 or fs != 0:
                 raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
-            _require_k3(label, k3)
+            _require_k34(label, k3, k4)
             k2 += bf
             if not (np.array_equal(r["data"], one["data"])
                     and tuple(r["meta"]) == tuple(one["meta"])):
@@ -1102,7 +1110,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         return apply_auto(*a, **kw)
 
     ev._apply_auto = counted_auto
-    k1_graphs, k3_ways = 0, {}
+    k1_graphs, k34_ways = 0, {}
     for (label, graphs), ref_s in zip((("affine sort eager", False), ("affine sort on graphs", None)),
                                       gather_s):
         report = hbm_budget.check_phase(
@@ -1116,7 +1124,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         warm_s = time.time() - t0
         warm_peak = torch.cuda.max_memory_allocated() / 2**30
         autos[0] = 0
-        out, secs, (k1, k2, k3) = _counted(counters, lambda: srt(ct))
+        out, secs, (k1, k2, k3, k4) = _counted(counters, lambda: srt(ct))
         peak = torch.cuda.max_memory_allocated() / 2**30
         got = keys.decrypt(out, N)
         err = float(np.abs(got - np.sort(vals)).max())
@@ -1125,7 +1133,8 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
             per_sort[op] = per_sort.get(op, 0) + v // srt.stages["D"].calls
         print(f"# {label} N={N} (K1 context, FHE_AFFINE_AUTO=1): warm-up {warm_s:.3f}s, sort "
               f"{secs:.3f}s against {ref_s:.3f}s by the gather (phase 5); K1 launches {k1}, K2 launches "
-              f"{k2}, K3 launches {k3}; automorphisms a sort: {per_sort.get('rot', 0)} rotations "
+              f"{k2}, K3 launches {k3}, K4 launches {k4}; automorphisms a sort: "
+              f"{per_sort.get('rot', 0)} rotations "
               f"(op_stats), {per_sort.get('mult_pt', 0)} plaintext products, {autos[0]} affine automorphisms "
               f"run from Python in the timed sort (0 on graphs: replays); graphs "
               f"{srt.stages.graph_count()}, captured in {srt.stages.capture_seconds():.2f}s; peak "
@@ -1136,16 +1145,16 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
             raise AssertionError(f"{label}: output planes differ from phase 5's gather sort")
         if k1 <= 0 or k2 != 0:
             raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
-        k3_ways[graphs] = _require_k3(label, k3)
+        k34_ways[graphs] = _require_k34(label, k3, k4)
         if not np.all(np.isfinite(got)) or not err < 0.01:
             raise AssertionError(f"{label}: sort error {err} >= 0.01")
         if graphs is None:
             k1_graphs = k1
         del srt, out
         _release()
-    if k3_ways[None] != k3_ways[False]:
-        raise AssertionError(f"affine: K3 launches on graphs {k3_ways[None]} != eager "
-                             f"{k3_ways[False]}")
+    if k34_ways[None] != k34_ways[False]:
+        raise AssertionError(f"affine: (K3, K4) launches on graphs {k34_ways[None]} != eager "
+                             f"{k34_ways[False]}")
     del ev, tables
     _release()
 
@@ -1191,11 +1200,12 @@ def _phase16_entry_points(counters, smi):
     plain version on the bootstrap harness's chain, then the harness
     (`utils/run_bootstrap.py`) at its defaults, ring 2^14 under a sparse
     secret on K1, max error below 1e-2; (d) K3 against its plain versions at
-    the top of `direct_n128`'s chain (`_k3_check`).  Returns the (K1, K2)
-    launches of the bench's timed sort and of the refresh, K1's largest
-    difference from its plain version, and K3's record; the launches of the
-    NTT bench and of the checks only time and compare the kernels, and are
-    not counted."""
+    the top of `direct_n128`'s chain (`_k3_check`), and K4 against its plain
+    version at the top of `mehp24_n512`'s and `direct_n128`'s (`_k4_check`).
+    Returns the (K1, K2) launches of the bench's timed sort and of the
+    refresh, K1's largest difference from its plain version, and K3's and
+    K4's records; the launches of the NTT bench and of the checks only time
+    and compare the kernels, and are not counted."""
     from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu
     from fhe_sorting_tpu_torch.utils import bench, ntt_bench, run_bootstrap
 
@@ -1224,12 +1234,13 @@ def _phase16_entry_points(counters, smi):
             and res["err_method"] == "decrypt" and res["value"] > 0
             and 0 < res["pct_of_sol"] < 105):
         raise AssertionError(f"bench: result out of bounds: {res}")
-    k1_bench, k2_bench, k3_bench = map(int, bench.LAUNCH_LINE.search(proc.stderr).groups())
-    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench}, K3 launches {k3_bench} in "
-          f"the timed sort ({smi})")
+    k1_bench, k2_bench, k3_bench, k4_bench = map(
+        int, bench.LAUNCH_LINE.search(proc.stderr).groups())
+    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench}, K3 launches {k3_bench}, K4 "
+          f"launches {k4_bench} in the timed sort ({smi})")
     if k1_bench <= 0:
         raise AssertionError("bench: the timed sort did not launch K1")
-    _require_k3("bench", k3_bench)
+    _require_k34("bench", k3_bench, k4_bench)
 
     # -- (b) the NTT microbenchmark; its launches compare and time, uncounted
     saved = [mod.launches for mod in counters]
@@ -1274,15 +1285,15 @@ def _phase16_entry_points(counters, smi):
         print(f"# run_bootstrap row: {buf.getvalue().strip()} ({smi})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    k1_boot, k2_boot, k3_boot = counts
+    k1_boot, k2_boot, k3_boot, k4_boot = counts
     print(f"# run_bootstrap: K1 launches {k1_boot}, K2 launches {k2_boot}, K3 launches "
-          f"{k3_boot}; {secs:.1f}s in all")
+          f"{k3_boot}, K4 launches {k4_boot}; {secs:.1f}s in all")
     if not out["max_err"] < 1e-2:
         raise AssertionError(f"run_bootstrap: max error {out['max_err']} >= 1e-2")
     if k1_boot <= 0:
         raise AssertionError("run_bootstrap: the refresh did not launch K1")
-    _require_k3("run_bootstrap", k3_boot)
-    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err, _k3_check(smi)
+    _require_k34("run_bootstrap", k3_boot, k4_boot)
+    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err, _k3_check(smi), _k4_check(smi)
 
 
 def _k3_check(smi):
@@ -1351,6 +1362,69 @@ def _k3_check(smi):
             "moddown_bound_ms": bound_ms["ModDown sub_scale"], "max_abs_err": err}
 
 
+def _k4_check(smi):
+    """K4 against its plain version on the card, bit for bit: the top ModUp
+    and ModDown of `mehp24_n512`'s chain (ring 2^17, depth 46, dnum 4: Lq 96
+    in four digits of 24, K 24; [1, 96, n] -> [4, 120, n] and [2, 24, n] ->
+    [2, 96, n], the latter read from a strided view) and the top ModUp of
+    `direct_n128`'s (Lq 68 in digits of 23, 23 and 22, K 23), on residues
+    with p - 1 in every row.  Times each launch (device, a mean of 20 after a
+    warm-up) beside its byte bound at 3.35 TB/s, with 8-byte and with 4-byte
+    residues (each input read once, each output written once), and the plain
+    PyTorch chain it replaced; its launches are not counted.  Returns K4's
+    record for the kernels' JSON, with the largest difference from the plain
+    version."""
+    from fhe_sorting_tpu_torch.core import rns_bconv
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.utils.roofline import H100
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+
+    def planes(shape, p):
+        x = _rand_residues(gen, shape, p)
+        x[..., 0] = (p - 1)[:, 0]
+        return x
+
+    calls = {}
+    for name, depth, dnum in (("mehp24_n512", 46, 4), ("direct_n128", 32, 3)):
+        ctx = Context(CkksParams(ring_n=RING, mult_depth=depth, scale_bits=56, comp=2,
+                                 base_limbs=4, dnum=dnum, ntt_impl="butterfly"))
+        ks, Lq, K = ctx.ks_rows(0), ctx.num_q, ctx.num_sp
+        digits = ctx.digit_layout(0)
+        x = planes((1, Lq, RING), ctx.p_active(0))
+        up = (x, ks.dhat_inv, ctx.p_active(0), ks.dig_ext, ks.p_target, digits)
+        calls[f"{name} ModUp"] = (up, (Lq + len(digits) * (Lq + K)) * RING)
+        if name == "mehp24_n512":
+            wide = planes((2, K + 3, RING), torch.cat([ctx.p_special()[:3], ctx.p_special()]))
+            down = (wide[:, 3:], ks.phat_inv, ctx.p_special(), ks.pext, ks.p_active, ((0, K),))
+            calls[f"{name} ModDown"] = (down, 2 * (K + Lq) * RING)
+    ms, plain_ms, bound_ms, bound4_ms, err = {}, {}, {}, {}, 0
+    for name, (args, residues) in calls.items():
+        got, want = rns_bconv.base_extend(*args), rns_bconv.base_extend_plain(*args)
+        _sync()
+        diff = int((got - want).abs().max())
+        err = max(err, diff)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {name} disagrees with its plain version: max |diff| {diff}")
+        ms[name] = _time_ms(lambda: rns_bconv.base_extend(*args), 20)
+        plain_ms[name] = _time_ms(lambda: rns_bconv.base_extend_plain(*args), 5)
+        bound_ms[name] = 8 * residues / H100.hbm_bytes_s * 1e3
+        bound4_ms[name] = bound_ms[name] / 2
+        print(f"# K4 {name} == plain, {tuple(args[0].shape)} -> {tuple(got.shape)}"
+              f"{' (a strided view)' if not args[0].is_contiguous() else ''}: kernel "
+              f"{ms[name]:.4f} ms, byte bound {bound_ms[name]:.4f} ms at 8-byte residues "
+              f"({100 * bound_ms[name] / ms[name]:.1f}% of it), {bound4_ms[name]:.4f} ms at 4-byte, "
+              f"the plain PyTorch chain {plain_ms[name]:.4f} ms ({smi})")
+    del calls, args, got, want
+    _release()
+    up, down = "mehp24_n512 ModUp", "mehp24_n512 ModDown"
+    return {"ms": ms[up], "plain_ms": plain_ms[up], "bound_ms": bound_ms[up],
+            "bound_ms_4byte": bound4_ms[up], "moddown_ms": ms[down],
+            "moddown_plain_ms": plain_ms[down], "moddown_bound_ms": bound_ms[down],
+            "max_abs_err": err}
+
+
 def _quiet(buf, fn):
     """fn() with its standard output into `buf`."""
     with contextlib.redirect_stdout(buf):
@@ -1377,7 +1451,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu, rns_div
+    from fhe_sorting_tpu_torch.core import (
+        bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu, rns_bconv, rns_div)
     from fhe_sorting_tpu_torch.core import primes as primes_mod
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
@@ -1397,13 +1472,12 @@ def main() -> int:
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
-    # -- phase 2: build K1 and K2 ----------------------------------------------
+    # -- phase 2: build K1 to K4 ----------------------------------------------
     t0 = time.time()
-    cuda_build.build(["fs_ntt", "bf_ntt", "rns_div"])
-    fs_ntt.load()
-    bf_ntt.load()
-    rns_div.load()
-    print(f"# K1 + K2 + K3 build (in parallel) + load: {time.time() - t0:.2f}s")
+    cuda_build.build(["fs_ntt", "bf_ntt", "rns_div", "rns_bconv"])
+    for mod in (fs_ntt, bf_ntt, rns_div, rns_bconv):
+        mod.load()
+    print(f"# K1 + K2 + K3 + K4 build (in parallel) + load: {time.time() - t0:.2f}s")
     for name, (secs, report) in cuda_build.reports.items():
         print(f"# nvcc {name}.cu: {secs:.2f}s")
         print("# " + report.strip().replace("\n", "\n# "))
@@ -1526,31 +1600,33 @@ def main() -> int:
     print(f"# staged: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s")
     ct = keys.encrypt(vals)
     staged = {}
+    counters = (fs_ntt, bf_ntt, rns_div, rns_bconv)
     for label, graphs in (("staged eager", False), ("staged on graphs", None)):
         report = hbm_budget.check_phase(
             ctx, len(scan), 4, work_cts=hbm_budget.work_cts("direct_staged", graphs is None),
             label=f"{label} N={N}")
         srt = StagedDirectSort(ev, N, cfg, graphs=graphs)
         staged[label] = (srt, *_run_sort(label, keys, ct, vals, srt, srt.construct_rank,
-                                         srt.index_check, (fs_ntt, bf_ntt, rns_div), smi,
-                                         report))
-        k1_count, k2_stray, k3_count = staged[label][1]
+                                         srt.index_check, counters, smi, report))
+        k1_count, k2_stray, k3_count, k4_count = staged[label][1]
         print(f"# {label}: K1 launches {k1_count}, K2 launches {k2_stray}, K3 launches "
-              f"{k3_count}; stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
+              f"{k3_count}, K4 launches {k4_count}; stage calls: "
+              f"{ {name: st.calls for name, st in srt.stages.items()} }")
         if k1_count <= 0 or k2_stray != 0:
             raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
-        _require_k3(label, k3_count)
+        _require_k34(label, k3_count, k4_count)
         del srt
         _release()
-    (_, (k1_eager, _, k3_eager), eager_s, _, out_e, _), (
-        srt, (k1_launches, _, k3_graphs), staged_s, phase_s, out_g,
+    (_, (k1_eager, _, *k34_eager), eager_s, _, out_e, _), (
+        srt, (k1_launches, _, *k34_graphs), staged_s, phase_s, out_g,
         (warm_s, warm_peak, peak)) = staged.values()
     if not torch.equal(out_e.data, out_g.data):
         raise AssertionError("staged: the sort on graphs differs from the eager sort")
     if k1_launches != k1_eager:
         raise AssertionError(f"staged: K1 launches on graphs {k1_launches} != eager {k1_eager}")
-    if k3_graphs != k3_eager:
-        raise AssertionError(f"staged: K3 launches on graphs {k3_graphs} != eager {k3_eager}")
+    if k34_graphs != k34_eager:
+        raise AssertionError(f"staged: (K3, K4) launches on graphs {k34_graphs} != eager "
+                             f"{k34_eager}")
     print(f"# staged N={N} on K1: eager {eager_s:.3f}s, on graphs {staged_s:.3f}s (output planes "
           f"equal); {srt.stages.graph_count()} graphs, captured in {srt.stages.capture_seconds():.2f}s "
           f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {k1_launches} (replay tallies); "
@@ -1561,7 +1637,7 @@ def main() -> int:
 
     # -- phase 15: the gather-free automorphism on phase 5's context and keys
     k1_affine, k2_phase15 = _phase15_affine(ctx, keys, ct, vals, cfg, out_g, (eager_s, staged_s),
-                                            (fs_ntt, bf_ntt, rns_div), smi)
+                                            counters, smi)
     del keys, ctx, fs, k1, ct, out_g
     _release()
 
@@ -1577,7 +1653,6 @@ def main() -> int:
     _sync()
     print(f"# per-op: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    counters = (fs_ntt, bf_ntt, rns_div)
     counts, per_op_s, *_ = _run_sort(
         "per-op", keys, keys.encrypt(vals), vals,
         lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
@@ -1607,8 +1682,8 @@ def main() -> int:
         by_phase[name] = phase(counters, smi)
         _release()
     # -- phase 16: the entry points of the system's own measurements --------
-    k1_entry, by_phase["bench, run_bootstrap"], k1_err16, k3 = _phase16_entry_points(counters,
-                                                                                       smi)
+    k1_entry, by_phase["bench, run_bootstrap"], k1_err16, k3, k4 = _phase16_entry_points(
+        counters, smi)
     k1_err = max(k1_err, k1_err16)
     _release()
     k2_launches = sum(by_phase.values())
@@ -1618,6 +1693,8 @@ def main() -> int:
     k1_launches += k1_affine + k1_entry
     print(f"# K3 launches by counted run: {K3_RUNS}; K3's largest difference from its plain "
           f"versions {k3['max_abs_err']} (phase 16)")
+    print(f"# K4 launches by counted run: {K4_RUNS}; K4's largest difference from its plain "
+          f"version {k4['max_abs_err']} (phase 16)")
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",
@@ -1642,6 +1719,14 @@ def main() -> int:
          "bound_by": "bytes", "form_ops_ms": None, "library_ms": None,
          "moddown_ms": k3["moddown_ms"], "moddown_plain_ms": k3["moddown_plain_ms"],
          "moddown_bound_ms": k3["moddown_bound_ms"]},
+        {"name": "rns_bconv (the key switch's base extension, K4; the top ModUp of "
+                 "mehp24_n512, [96, 2^17] -> [4, 120, 2^17])", "route": "cuda",
+         "source": "fhe_sorting_tpu_torch/csrc/rns_bconv.cu", "replaces": None,
+         "launches": sum(K4_RUNS.values()), "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": "bytes", "bound_ms_4byte": k4["bound_ms_4byte"], "form_ops_ms": None,
+         "library_ms": None, "moddown_ms": k4["moddown_ms"],
+         "moddown_plain_ms": k4["moddown_plain_ms"], "moddown_bound_ms": k4["moddown_bound_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

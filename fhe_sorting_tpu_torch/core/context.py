@@ -203,9 +203,9 @@ class KeySwitchRows:
     p_active: torch.Tensor       # [a, 1]
     p_special: torch.Tensor      # [s, 1]
     p_target: torch.Tensor       # [a+s, 1]
-    dhat_inv: torch.Tensor       # [a, 1]
-    dig_ext: tuple               # per digit [a+s, len(digit)] CRT factors
-    phat_inv: torch.Tensor       # [s, 1]
+    dhat_inv: torch.Tensor       # [Ll, 1] of every active row: ModUp extends from all
+    dig_ext: torch.Tensor        # [a+s, Ll] CRT factors, digit (lo, hi)'s in columns lo:hi
+    phat_inv: torch.Tensor       # [K, 1] of every special row: ModDown extends from all
     pext: torch.Tensor           # [a, K] P-hat residues mod the active rows
     p_inv_mod_qi: torch.Tensor   # [a, 1]
     n_active: int                # a
@@ -393,8 +393,8 @@ class Context:
         hit = self._rows_cache[key] = KeySwitchRows(
             active=active, special=special, target=target, p_active=self.pc.p[rq],
             p_special=self.pc.p[nq:][rs], p_target=self.pc.p[target],
-            dhat_inv=plan.dhat_inv[rq], dig_ext=tuple(fac[own] for fac in plan.dig_ext),
-            phat_inv=plan.phat_inv[rs], pext=plan.pext[rq], p_inv_mod_qi=plan.p_inv_mod_qi[rq],
+            dhat_inv=plan.dhat_inv, dig_ext=torch.cat(plan.dig_ext, dim=1)[own],
+            phat_inv=plan.phat_inv, pext=plan.pext[rq], p_inv_mod_qi=plan.p_inv_mod_qi[rq],
             n_active=len(q), key_special=len(cyclic(nq, parts, index)))
         return hit
 

@@ -11,14 +11,16 @@ The automorphism is a gather by default.  `FHE_AFFINE_AUTO` opts into the
 gather-free form of `core/auto_affine.py` by the JAX package's rule: "1" on
 a four-step (K1) context, "force" on any.  Both give the same residues.
 
-Key switching is hybrid: ModUp (INTT, CRT base extension per digit as an
-exact modular matmul, NTT of every digit in one batched call), the inner
-product with the key, then ModDown (division by P).  Every NTT goes through
-`core/ntt.py`, which on a GPU launches the CUDA kernel of the context's
-tables: K1 (four-step) or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
-sliced or copied per op.  The exact division by a dropped modulus, in every
-rescale (by q_last) and at the end of ModDown (by P), goes through
-`core/rns_div.py`, which on a GPU launches K3 on either side of the NTT.
+Key switching is hybrid: ModUp (INTT, CRT base extension of every digit,
+NTT of every digit in one batched call), the inner product with the key,
+then ModDown (division by P).  Every NTT goes through `core/ntt.py`, which
+on a GPU launches the CUDA kernel of the context's tables: K1 (four-step)
+or K2 (butterfly).  Limb subsets are index tensors cached on the context, so no table is
+sliced or copied per op.  The base extensions of ModUp and ModDown go
+through `core/rns_bconv.py`, which on a GPU launches K4 once each.  The
+exact division by a dropped modulus, in every rescale (by q_last) and at
+the end of ModDown (by P), goes through `core/rns_div.py`, which on a GPU
+launches K3 on either side of the NTT.
 
 The key switch and the rescale compute the rows `Context.ks_rows` and
 `Context.rescale_rows` give for `limb_part` ((1, 0) here: every row), and
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 
 from . import ntt as nttm
-from . import rns_div, trace
+from . import rns_bconv, rns_div, trace
 from .auto_affine import apply_affine
 from .cipher import Ciphertext, Plaintext
 from .context import Context, FrozenError
@@ -432,16 +434,16 @@ class Evaluator:
     def _modup(self, d_limb: torch.Tensor, level: int) -> torch.Tensor:
         """Hybrid ModUp: [Ll, n] eval -> per-digit extended [D, T, n] eval.
 
-        The CRT base extension of each digit is an exact modular matmul:
-        out[t] = sum_i fac[t, i] y[i] mod p_t, one output row at a time, so
-        an evaluator computes the target rows it holds from the whole
-        digit planes."""
+        The CRT base extension of each digit (`rns_bconv`: y = x dhat_inv,
+        out[t] = sum_i fac[t, i] y[i] mod p_t) is exact row by row, so an
+        evaluator computes the target rows it holds from the whole digit
+        planes."""
         ctx = self.ctx
         rows = ctx.ks_rows(level, *self.limb_part)
-        y = mulmod(self._intt(d_limb, rows.active, "modup"), rows.dhat_inv, rows.p_active)
-        y = self._gather_rows(y, ctx.limbs_at(level))
-        ext = torch.stack([mod_matmul(fac, y[lo:hi], rows.p_target)
-                           for fac, (lo, hi) in zip(rows.dig_ext, ctx.digit_layout(level))])
+        Ll = ctx.limbs_at(level)
+        x = self._gather_rows(self._intt(d_limb, rows.active, "modup"), Ll)
+        ext = rns_bconv.base_extend(x[None], rows.dhat_inv, ctx.p_active(level), rows.dig_ext,
+                                    rows.p_target, ctx.digit_layout(level))
         return self._ntt(ext, rows.target, "modup")
 
     @trace.op("ev.inner_product")
@@ -460,13 +462,14 @@ class Evaluator:
 
     @trace.op("ev.moddown")
     def _moddown(self, c: torch.Tensor, level: int) -> torch.Tensor:
-        """Exact division by P.  c: [..., Ll+K, n] -> [..., Ll, n]."""
+        """Exact division by P.  c: [B, Ll+K, n] -> [B, Ll, n]."""
         ctx = self.ctx
         rows = ctx.ks_rows(level, *self.limb_part)
-        a, p_a, p_s = rows.n_active, rows.p_active, rows.p_special
-        cp = self._intt(c[..., a:, :], rows.special, "moddown")
-        y = self._gather_rows(mulmod(cp, rows.phat_inv, p_s), ctx.num_sp)
-        ext = self._ntt(mod_matmul(rows.pext, y, p_a), rows.active, "moddown")
+        a, p_a, K = rows.n_active, rows.p_active, ctx.num_sp
+        cp = self._gather_rows(self._intt(c[..., a:, :], rows.special, "moddown"), K)
+        ext = rns_bconv.base_extend(cp, rows.phat_inv, ctx.p_special(), rows.pext, p_a,
+                                    ((0, K),))
+        ext = self._ntt(ext, rows.active, "moddown")
         return rns_div.sub_scale(c[..., :a, :], ext, p_a, rows.p_inv_mod_qi)
 
     def _keyswitch_core(self, d_limb, level: int, ksk: KeySwitchKey):

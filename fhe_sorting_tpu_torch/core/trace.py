@@ -12,7 +12,7 @@ an evaluator op.  It holds
   device    (start, end) nanoseconds of its device work on the same clock,
             or None where the span was opened without a device
   counts    what the code recorded at the same boundary (a dispatch's
-            `kind`, NTT `planes`, K1, K2 and K3 `launches`, `ops`)
+            `kind`, NTT `planes`, K1 to K4 `launches`, `ops`)
 
 Spans are recorded inside `recording()`, an operator's explicit window, and
 whenever a `torch.profiler` session is recording: the first span opened in
@@ -112,7 +112,7 @@ class _Recorder:
         self._rf = torch.profiler.record_function(self.name)
         self._rf.__enter__()
         if self._cuda:
-            stream = torch.cuda.current_stream(dev)
+            self._stream = stream = torch.cuda.current_stream(dev)
             if w.anchor is None:
                 # inside the annotation: the device idles while this waits
                 w.anchor = _anchor(dev, stream)
@@ -127,7 +127,7 @@ class _Recorder:
     def __exit__(self, *exc):
         sp = self.span
         if self._cuda:
-            sp._events[1].record(torch.cuda.current_stream(self.device))
+            sp._events[1].record(self._stream)
         self._rf.__exit__(*exc)
         sp.end = time.time_ns()
         if self.device is not None and self.device.type != "cuda":

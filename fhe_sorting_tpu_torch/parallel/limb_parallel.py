@@ -13,16 +13,17 @@ ops that mix limbs communicate where the JAX package's GSPMD partition
 does, and nowhere else:
 
   * ModUp          - each rank takes its own rows of the input to
-                     coefficients (INTT, x dhat_inv); one all-gather of the
-                     digit coefficient planes [Ll, n]; each rank then
-                     extends every digit into its own target rows only (the
-                     rows of `dig_ext`: `mod_matmul` is exact row by row)
-                     and NTTs them;
+                     coefficients (INTT); one all-gather of the digit
+                     coefficient planes [Ll, n]; each rank then multiplies
+                     every gathered row by its dhat_inv and extends every
+                     digit into its own target rows only (the rows of
+                     `dig_ext`: the base extension is exact row by row), in
+                     one call of `core/rns_bconv.py`, and NTTs them;
   * inner product  - local, against the rank's rows of the key;
-  * ModDown        - INTT of the rank's special rows, x phat_inv; one
-                     all-gather of the special coefficient planes
-                     [..., K, n]; the extension into its own active rows,
-                     the NTT, the subtraction and x P^-1;
+  * ModDown        - INTT of the rank's special rows; one all-gather of the
+                     special coefficient planes [..., K, n]; x phat_inv and
+                     the extension into its own active rows (one call), the
+                     NTT, the subtraction and x P^-1;
   * rescale        - for each dropped limb in turn, its owner INTTs it and
                      broadcasts the [2, 1, n] coefficient plane; every rank
                      finishes its own rows.

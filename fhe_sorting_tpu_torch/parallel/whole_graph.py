@@ -37,9 +37,9 @@ calls, as the JAX package passes a sharded step its checking vectors):
     (the `StageTable`'s prefix), whose device interval brackets the
     copy-in, the replay and the clone-out (or the eager call) and whose
     counts are its `kind` ("eager", "capture": the first call on graphs,
-    or "replay"), the NTT `planes` and the K1, K2 and K3 launches (`k1`,
-    `k2`, `k3`) it ran, and the `ops` of its tally; a capture is a child span
-    `<sort>.<stage>.capture` without a device interval;
+    or "replay"), the NTT `planes` and the K1, K2, K3 and K4 launches
+    (`k1`, `k2`, `k3`, `k4`) it ran, and the `ops` of its tally; a capture
+    is a child span `<sort>.<stage>.capture` without a device interval;
   * nothing falls back: on a CUDA context a failed capture raises.
 
 Streams and memory: the graphs of one sort share a `GraphSet`, one side
@@ -68,12 +68,12 @@ from dataclasses import replace
 
 import torch
 
-from ..core import bf_ntt, fs_ntt, rns_div, trace
+from ..core import bf_ntt, fs_ntt, rns_bconv, rns_div, trace
 from ..core.cipher import Ciphertext
 from ..core.keys import KeySwitchKey
 
 # the kernel modules whose `launches` counters a replay advances
-KERNELS = (fs_ntt, bf_ntt, rns_div)
+KERNELS = (fs_ntt, bf_ntt, rns_div, rns_bconv)
 
 
 def use_graphs(ev, graphs: bool | None) -> bool:
@@ -168,7 +168,7 @@ class WholeGraph:
             self.graph_set = GraphSet(self.ev.ctx.device)
         with self.graph_set.bracket():
             if self._g is not None and self._keys_current():
-                return self._dispatch("replay", self._replay, cts)
+                return self._outputs(self._dispatch("replay", self._replay, cts))
             self._drop()
             return self._dispatch("capture", self._first, cts)
 
@@ -179,18 +179,20 @@ class WholeGraph:
 
     def _dispatch(self, kind: str, run, cts):
         """`run(cts)` inside the dispatch's span, on the current stream (the
-        side stream on graphs), with what it ran counted on the span."""
+        side stream on graphs), with what it ran counted on the span once it
+        has closed: no host work lies between the dispatch's last device
+        work and the end of its device interval."""
         with trace.span(self.name, self.ev.ctx.device) as sp:
             if sp is None:
                 return run(cts)
             planes = self.ev.ntt_planes.total()
             launches = [mod.launches for mod in KERNELS]
             out = run(cts)
-            sp.counts.update(kind=kind, planes=self.ev.ntt_planes.total() - planes,
-                             k1=fs_ntt.launches - launches[0], k2=bf_ntt.launches - launches[1],
-                             k3=rns_div.launches - launches[2],
-                             ops=sum(self.op_counts.values()))
-            return out
+        sp.counts.update(kind=kind, planes=self.ev.ntt_planes.total() - planes,
+                         k1=fs_ntt.launches - launches[0], k2=bf_ntt.launches - launches[1],
+                         k3=rns_div.launches - launches[2], k4=rns_bconv.launches - launches[3],
+                         ops=sum(self.op_counts.values()))
+        return out
 
     def _eager(self, cts):
         ev = self.ev
@@ -248,13 +250,18 @@ class WholeGraph:
         self._keys = tuple(r for r in reads if isinstance(r, KeySwitchKey))
 
     def _replay(self, cts):
-        for buf, c in zip(self._ins, cts):
-            buf.data.copy_(c.data)
-        self._g.replay()
-        outs = [replace(o, data=o.data.clone()) for o in self._outs]
+        """Copy-in, replay and clone-out; returns the outputs' planes, which
+        `_outputs` wraps once the dispatch's span has closed."""
         for mod, d in self._launches.items():
             mod.launches += d
         self.ev.ntt_planes.update(self._planes)
+        for buf, c in zip(self._ins, cts):
+            buf.data.copy_(c.data)
+        self._g.replay()
+        return [o.data.clone() for o in self._outs]
+
+    def _outputs(self, planes):
+        outs = [replace(o, data=d) for o, d in zip(self._outs, planes)]
         return outs[0] if self._single else outs
 
 

@@ -67,7 +67,8 @@ LOGQP_128 = {2048: 54, 4096: 109, 8192: 218, 16384: 438, 32768: 881,
              65536: 1772, 131072: 3524}
 
 # the worker's line with the kernels' launches in one timed sort
-LAUNCH_LINE = re.compile(r"^# launches in one timed sort: K1 (\d+), K2 (\d+), K3 (\d+)", re.M)
+LAUNCH_LINE = re.compile(
+    r"^# launches in one timed sort: K1 (\d+), K2 (\d+), K3 (\d+), K4 (\d+)", re.M)
 
 
 def _log(msg: str) -> None:
@@ -76,7 +77,7 @@ def _log(msg: str) -> None:
 
 def worker(args) -> dict:
     """One N in this process; returns `bench.py`'s result dict."""
-    from ..core import bf_ntt, fs_ntt, rns_div, trace
+    from ..core import bf_ntt, fs_ntt, rns_bconv, rns_div, trace
     from ..core.ntt import synchronize
     from . import hbm_budget, roofline
     from .profile_sort import rotation_steps, sort_context, sorter
@@ -139,7 +140,7 @@ def worker(args) -> dict:
     trials = args.trials
     times, phases = [], []
     for _ in range(trials):
-        fs_ntt.launches = bf_ntt.launches = rns_div.launches = 0
+        fs_ntt.launches = bf_ntt.launches = rns_div.launches = rns_bconv.launches = 0
         t0 = time.perf_counter()
         rank = srt.construct_rank(ct)
         synchronize(ctx.device)
@@ -151,7 +152,7 @@ def worker(args) -> dict:
         phases.append((t1 - t0, t2 - t1))
         del rank
     _log(f"# launches in one timed sort: K1 {fs_ntt.launches}, K2 {bf_ntt.launches}, "
-         f"K3 {rns_div.launches}")
+         f"K3 {rns_div.launches}, K4 {rns_bconv.launches}")
     best = min(times)
     p1_s, p2_s = phases[times.index(best)]
     _log(f"# trials: {', '.join(f'{t:.3f}s' for t in times)}; phases (best trial): "

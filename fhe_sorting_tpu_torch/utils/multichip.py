@@ -291,14 +291,14 @@ def run_limb_sort(rank: int, world: int, N: int, out: str, ring: int = 1 << 17) 
     reckoned together on the card), then sorts once, every kernel's count
     set to 0 just before and read just after.  Writes `{out}{rank}.npz`:
     the gathered output planes and metadata, the sort's seconds, its K1,
-    K2 and K3 launches, the error (rank 0), the key bytes held, the limb
+    K2, K3 and K4 launches, the error (rank 0), the key bytes held, the limb
     planes its key switches and rescales transformed (`ntt_planes`) and its
     plaintext encodes, the residues gathered and broadcast, its peak and
     its reckoning."""
     import json
     import time
 
-    from ..core import bf_ntt, fs_ntt, rns_div
+    from ..core import bf_ntt, fs_ntt, rns_bconv, rns_div
     from ..core import ntt as nttm
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
@@ -332,12 +332,12 @@ def run_limb_sort(rank: int, world: int, N: int, out: str, ring: int = 1 << 17) 
     setup_s = time.time() - t0
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     ct = keys.encrypt(vals, slots=N, seed=1)
-    fs_ntt.launches = bf_ntt.launches = rns_div.launches = 0
+    fs_ntt.launches = bf_ntt.launches = rns_div.launches = rns_bconv.launches = 0
     t0 = time.time()
     got = srt(ct)
     nttm.synchronize(dev)
     sort_s = time.time() - t0
-    launches = (fs_ntt.launches, bf_ntt.launches, rns_div.launches)
+    launches = (fs_ntt.launches, bf_ntt.launches, rns_div.launches, rns_bconv.launches)
     err = float(np.abs(keys.decrypt(got, N) - np.sort(vals)).max()) if rank == 0 else -1.0
     np.savez(f"{out}{rank}.npz", data=got.data.cpu().numpy(),
              meta=np.array([got.level, got.sdeg, got.slots]), depth=np.array(depth),

@@ -89,8 +89,8 @@ def test_main_streams_each_n_then_the_combined_line(capfd, monkeypatch):
     assert set(first) == RESULT_KEYS | {"baseline_src"}
     assert first["baseline_src"] == bench.BASELINE_SRC and first["max_error"] < 0.01
     assert combined == first
-    k1, k2, k3 = map(int, bench.LAUNCH_LINE.search(err).groups())
-    assert k1 == k2 == k3 == 0         # the CPU runs the kernels' plain versions
+    k1, k2, k3, k4 = map(int, bench.LAUNCH_LINE.search(err).groups())
+    assert k1 == k2 == k3 == k4 == 0   # the CPU runs the kernels' plain versions
 
 
 def test_main_failed_worker_gives_an_error_line_and_exit_1(capfd, monkeypatch):
