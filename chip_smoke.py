@@ -92,7 +92,7 @@ Phases (each failure raises, and the script exits non-zero):
      as a captured stage with its NCCL all-gather and broadcasts inside,
      replayed on a new input, bit-equal to the plain evaluator;
  17. (after phase 13) limb parallelism that splits the work: the sharded
-     DirectSort N=128 on the bench's chain (ring 2^17, comp=2, depth 32,
+     DirectSort N=128 on phase 5's chain (ring 2^17, comp=2, depth 32,
      Lq 68, K 23, dnum 3, butterfly NTT) on a (1 x 2) mesh of two gloo
      processes that share this card (NCCL refuses two ranks on one GPU),
      eagerly, and the same sort on a (1 x 1) mesh, each rank making its rows
@@ -104,11 +104,7 @@ Phases (each failure raises, and the script exits non-zero):
      sort seconds, the bytes gathered and broadcast a sort, the plaintext
      encodes' planes apart, and each rank's peak beside its reckoning.
  16. (last) the entry points of the system's own measurements, each as a
-     user runs it: `python -m fhe_sorting_tpu_torch.utils.bench --n 128
-     --trials 1` as a subprocess (the staged N=128 sort on K1 and graphs:
-     `bench.py`'s keys, error < 0.01, within the 128-bit logQP budget, a
-     share of the speed of light in (0, 105)%, K1 launched in the timed
-     sort); `utils/ntt_bench.py` at its defaults ([2, 40, 2^16]: K2, the
+     user runs it: `utils/ntt_bench.py` at its defaults ([2, 40, 2^16]: K2, the
      plain four-step and K1 bit-equal to the plain butterfly, then a
      rotation and a multiplication on K1); `utils/run_bootstrap.py` at its
      defaults (ring 2^14, sparse secret, level budget 3, on K1), max error
@@ -120,12 +116,14 @@ Phases (each failure raises, and the script exits non-zero):
      the `mehp24_n512` chain (Lq 96, four digits of 24, K 24) and the top
      ModUp of `direct_n128`'s (a short last digit), on a strided view, timed
      the same way.
-Phases 7-14 and 17 run butterfly contexts: each must launch K2 and never
-K1, with the counts set to 0 just before and read just after (in phase 17
-by each rank's process).  Every counted run of a main path (each a sort, a
-refresh or a run of rotations, so each rescales and switches keys) must also
-launch K3 and K4, as often on graphs as eagerly where it runs both ways; the
-kernels' JSON gives K3 and K4 the sums of those runs' launches.  Every phase from 5 on
+Every counted run of a main path (each a sort, a refresh or a run of
+rotations, so each rescales and switches keys) reads the kernels' launch
+counter (`core/cuda_build.py`, `{"k1": n, ...}`), set to 0 just before and
+read just after (in phase 17 by each rank's process), and must launch its
+context's NTT kernel and not the other (K2 on the butterfly contexts of
+phases 6-14 and 17, K1 on phases 5, 15(b) and 16's refresh), K3 and K4, as
+often on graphs as eagerly where it runs both ways; the kernels' JSON gives
+each kernel the sum of those runs' launches.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
 budget.
@@ -160,6 +158,8 @@ import time
 
 import numpy as np
 import torch
+
+from fhe_sorting_tpu_torch.core import cuda_build
 
 N, RING = 128, 1 << 17
 
@@ -217,9 +217,9 @@ def _ntt_bound(planes: int, limbs: int, n: int):
     return (cost.sol_seconds(H100) * 1e3, by), _ops_ms(cost.int_ops)
 
 
-def _run_sort(label, keys, ct, vals, sort, phase1, phase2, counters, smi, report):
+def _run_sort(label, keys, ct, vals, sort, phase1, phase2, smi, report):
     """A warm-up sort of `ct`, then a timed one, both through the entry point
-    `sort`; every kernel's count is set to 0 just before the timed sort and
+    `sort`; the launch counter is set to 0 just before the timed sort and
     read just after, and the error is that sort's; the peak memory is taken
     over both (held to `report`'s budget).  A third sort, uncounted, runs the
     entry point's two phases by hand for their seconds.  Returns (counts,
@@ -232,14 +232,7 @@ def _run_sort(label, keys, ct, vals, sort, phase1, phase2, counters, smi, report
     warm_s = time.time() - t0
     warm_peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"# {label}: warm-up sort {warm_s:.2f}s, peak {warm_peak:.2f} GiB")
-    for mod in counters:
-        mod.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    out = sort(ct)
-    _sync()
-    total = time.time() - t0
-    counts = [mod.launches for mod in counters]
+    out, total, counts = _counted(lambda: sort(ct))
     peak = torch.cuda.max_memory_allocated() / 2**30
     got = keys.decrypt(out, N)
     err = float(np.abs(got - np.sort(vals)).max())
@@ -286,48 +279,45 @@ def _release():
     torch.cuda.empty_cache()
 
 
-# K3's and K4's launches in each counted run of a main path, by the run's label
-K3_RUNS, K4_RUNS = {}, {}
+# the launches of each counted run of a main path, by the run's label
+RUNS = {}
 
 
-def _require_k34(label, k3, k4):
-    """Record K3's and K4's launches in the counted run `label`, which must
-    have launched both: every such run rescales and switches keys.  Returns
-    (k3, k4)."""
-    if k3 <= 0:
-        raise AssertionError(f"{label}: K3 was not launched")
-    if k4 <= 0:
-        raise AssertionError(f"{label}: K4 was not launched")
-    K3_RUNS[label], K4_RUNS[label] = k3, k4
-    return k3, k4
-
-
-def _counted(counters, fn):
-    """fn() with every kernel's count set to 0 just before and read just
-    after (synchronised); returns (result, seconds, counts)."""
-    for mod in counters:
-        mod.launches = 0
+def _counted(fn):
+    """fn() with the launch counter set to 0 just before and read just after
+    (synchronised); returns (result, seconds, {kernel: launches})."""
+    cuda_build.reset()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     out = fn()
     _sync()
     secs = time.time() - t0
-    return out, secs, [mod.launches for mod in counters]
+    return out, secs, cuda_build.counts()
 
 
-def _require_k2_only(label, counts):
-    k1, k2, k3, k4 = counts
-    print(f"# {label}: K2 launches {k2}, K1 launches {k1}, K3 launches {k3}, K4 launches {k4}")
-    if k2 <= 0 or k1 != 0:
-        raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
-    _require_k34(label, k3, k4)
-    return k2
+def _require(label, counts, ntt="k2"):
+    """Record the launches `counts` of the counted run `label`, which must
+    have launched the NTT kernel `ntt` of its context and not the other one
+    (K2 on a butterfly context, K1 on a four-step one), and K3 and K4."""
+    other = "k1" if ntt == "k2" else "k2"
+    print(f"# {label}: launches {counts}")
+    if counts[ntt] <= 0 or counts[other] != 0:
+        raise AssertionError(f"{label}: must launch {ntt.upper()} and not {other.upper()}: "
+                             f"{counts}")
+    for key in ("k3", "k4"):
+        if counts[key] <= 0:
+            raise AssertionError(f"{label}: {key.upper()} was not launched")
+    RUNS[label] = counts
 
 
-def _phase7_serve(ctx2, keys, counters, smi):
+def _same(label, got, want, how):
+    if got != want:
+        raise AssertionError(f"{label}: launches {how} {got} != {want}")
+
+
+def _phase7_serve(ctx2, keys, smi):
     """Serve the tie-free vector of phases 5 and 6 from files through the
-    server's entry point, and hold the decrypted output to max error < 0.01;
-    returns the K2 launches of the server's run."""
+    server's entry point, and hold the decrypted output to max error < 0.01."""
     from fhe_sorting_tpu_torch.core import serialize
     from fhe_sorting_tpu_torch.core.keys import Keys
     from fhe_sorting_tpu_torch.serving import sort_server
@@ -394,7 +384,7 @@ def _phase7_serve(ctx2, keys, counters, smi):
         for name, fn in originals.items():
             setattr(sort_server, name, timed(name, fn))
         try:
-            _, total_s, counts = _counted(counters, lambda: sort_server.main([
+            _, total_s, counts = _counted(lambda: sort_server.main([
                 "--cc", path["cc"], "--keys", path["keys"], "--input", path["inp"],
                 "--output", path["out"], "--n", str(N), "--algo", "direct"]))
         finally:
@@ -424,7 +414,7 @@ def _phase7_serve(ctx2, keys, counters, smi):
             raise AssertionError("serve: output is not N finite values")
         if not err < 0.01:
             raise AssertionError(f"serve: sort error {err} >= 0.01")
-        return _require_k2_only("serve", counts)
+        _require("serve", counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -454,14 +444,13 @@ def _boot_env(depth, hamming, budget, smi, label, pt_cache_bytes=None, n_cts=4):
     return ctx, keys, ev, rot, bs, report
 
 
-def _phase8_bootstrap(counters, smi):
+def _phase8_bootstrap(smi):
     """Two refreshes of 2^16 values in [0, 1].  The first, on an empty
     plaintext memo, is the bootstrap's time: it encodes every diagonal on the
     host, as every refresh does under the evaluator's default memo, which holds
     a fraction of one refresh's plaintexts.  The second shows what a memo
     that holds them all (24 GiB here) saves.  The uniform-ternary-secret
-    shape; the second refresh must meet max error < 1e-2.  Returns its K2
-    launches."""
+    shape; the second refresh must meet max error < 1e-2."""
     # the refresh ends at level 30 (scale degree 2): depth 33 leaves two levels
     depth = 33
     ctx, keys, ev, rot, bs, report = _boot_env(depth, None, (3, 3), smi,
@@ -501,7 +490,7 @@ def _phase8_bootstrap(counters, smi):
             lt.apply = staged("S2C", lt.apply)
     before = (rot.stats.rotations, rot.stats.composed, rot.stats.lazy_keygens)
     ev.pt_stats.update(hits=0, misses=0, encode_s=0.0)
-    out, boot_s, counts = _counted(counters, lambda: bs.bootstrap(ct_low))
+    out, boot_s, counts = _counted(lambda: bs.bootstrap(ct_low))
     peak = torch.cuda.max_memory_allocated() / 2**30
     try:
         got = keys.decrypt(out, nh)
@@ -525,10 +514,10 @@ def _phase8_bootstrap(counters, smi):
         raise AssertionError("bootstrap: the level was not refreshed")
     if not err.max() < 1e-2:
         raise AssertionError(f"bootstrap: max error {err.max()} >= 1e-2")
-    return _require_k2_only("bootstrap", counts)
+    _require("bootstrap", counts)
 
 
-def _phase9_bitonic(counters, smi, n=8):
+def _phase9_bitonic(smi, n=8):
     """BitonicSort with bootstrapping: sparse secret, dg=df=2, depth 42 (the
     published recipe's 40 is sized for a budget-(2,2) refresh that ends near
     level 20; the budget-(3,3) refresh used here ends at level 24)."""
@@ -556,7 +545,7 @@ def _phase9_bitonic(counters, smi, n=8):
     cfg = SignConfig(CompositeSignConfig(3, 2, 2), mult_depth=depth)
     x = np.random.default_rng(4).permutation(n) / n + 0.5 / n
     out, secs, counts = _counted(
-        counters, lambda: srt.sort(keys.encrypt(x, slots=n), SignFunc.CompositeSign, cfg))
+        lambda: srt.sort(keys.encrypt(x, slots=n), SignFunc.CompositeSign, cfg))
     peak = torch.cuda.max_memory_allocated() / 2**30
     got = keys.decrypt(out, n)
     err = float(np.abs(got - np.sort(x)).max())
@@ -570,10 +559,10 @@ def _phase9_bitonic(counters, smi, n=8):
         raise AssertionError("bitonic: no bootstrap fired")
     if not err < 0.01:
         raise AssertionError(f"bitonic: sort error {err} >= 0.01")
-    return _require_k2_only("bitonic", counts)
+    _require("bitonic", counts)
 
 
-def _phase10_mehp24(counters, smi, n=64):
+def _phase10_mehp24(smi, n=64):
     """MEHP24 at one n x n matrix, driven from Python."""
     from fhe_sorting_tpu_torch.core.context import CkksParams, Context
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
@@ -607,7 +596,7 @@ def _phase10_mehp24(counters, smi, n=64):
     padded = np.zeros(n * n)
     padded[:n] = x
     out, secs, counts = _counted(
-        counters, lambda: srt.sort(keys.encrypt(padded, slots=n * n), SignFunc.CompositeSign, cfg))
+        lambda: srt.sort(keys.encrypt(padded, slots=n * n), SignFunc.CompositeSign, cfg))
     peak = torch.cuda.max_memory_allocated() / 2**30
     got = keys.decrypt(out, n)
     err = float(np.abs(got - np.sort(x)).max())
@@ -618,10 +607,10 @@ def _phase10_mehp24(counters, smi, n=64):
         raise AssertionError("mehp24: output is not N finite values")
     if not err < 0.01:
         raise AssertionError(f"mehp24: sort error {err} >= 0.01")
-    return _require_k2_only("mehp24", counts)
+    _require("mehp24", counts)
 
 
-def _characterizer_line(counters, smi):
+def _characterizer_line(smi):
     """The sign characterizer's sweep of CompositeSign(3,3,2) at ring 2^12 on
     a butterfly context (keys from seed 0, as the characterizer makes)."""
     from fhe_sorting_tpu_torch.core.context import CkksParams, Context
@@ -630,14 +619,14 @@ def _characterizer_line(counters, smi):
 
     ctx = Context(CkksParams(ring_n=1 << 12, mult_depth=(3 + 2) * 3 + 4, ntt_impl="butterfly"))
     keys = Keys.generate(ctx, seed=0)
-    m, secs, counts = _counted(counters, lambda: characterize(3, 3, 2, keys=keys))
+    m, secs, counts = _counted(lambda: characterize(3, 3, 2, keys=keys))
     print(f"# sign characterizer, ring 2^12: {json.dumps(m)}; sweep {secs:.2f}s ({smi})")
     if m["working_precision"] is None:
         raise AssertionError("characterizer: no input magnitude met the threshold")
-    return _require_k2_only("characterizer", counts)
+    _require("characterizer", counts)
 
 
-def _phase11_kway(counters, smi, n=16):
+def _phase11_kway(smi, n=16):
     """The k-way network, k=2, at ring 2^17 under a uniform ternary secret
     (`kway_run.build`), then one five-sorter stage on its context and keys."""
     from fhe_sorting_tpu_torch.models.kway import KWaySorter
@@ -657,8 +646,7 @@ def _phase11_kway(counters, smi, n=16):
     if not run.logqp <= budget:
         raise AssertionError(f"k-way: logQP {run.logqp} over the budget {budget}")
     ct = run.keys.encrypt(run.vals, slots=n)
-    out, secs, counts = _counted(
-        counters, lambda: run.sorter.sort(ct, SignFunc.CompositeSign, run.cfg))
+    out, secs, counts = _counted(lambda: run.sorter.sort(ct, SignFunc.CompositeSign, run.cfg))
     peak = torch.cuda.max_memory_allocated() / 2**30
     got = run.keys.decrypt(out, n)
     err = float(np.abs(got - np.sort(run.vals)).max())
@@ -680,7 +668,7 @@ def _phase11_kway(counters, smi, n=16):
         raise AssertionError("k-way: no bootstrap fired")
     if not err < 0.01:
         raise AssertionError(f"k-way: sort error {err} >= 0.01")
-    k2 = _require_k2_only("k-way", counts)
+    _require("k-way", counts)
 
     # one five-sorter stage: k=5, N=5 in 8 slots, on the chain's depth alone
     x5 = np.array([0.9, 0.1, 0.5, 0.7, 0.3])
@@ -688,7 +676,7 @@ def _phase11_kway(counters, smi, n=16):
     pad[:5] = x5
     ct5 = run.keys.encrypt(pad, slots=8)
     srt5 = KWaySorter(run.ev, 5, 1)
-    out5, secs5, counts5 = _counted(counters, lambda: srt5.sort(
+    out5, secs5, counts5 = _counted(lambda: srt5.sort(
         ct5, SignFunc.CompositeSign, SignConfig(CompositeSignConfig(3, 3, 2))))
     got5 = run.keys.decrypt(out5, 5)
     err5 = float(np.abs(got5 - np.sort(x5)).max())
@@ -696,10 +684,10 @@ def _phase11_kway(counters, smi, n=16):
           f"sort error {err5:.3e} ({smi})")
     if not np.all(np.isfinite(got5)) or not err5 < 0.01:
         raise AssertionError(f"k-way five-sorter: sort error {err5} >= 0.01")
-    return k2 + _require_k2_only("k-way five-sorter", counts5)
+    _require("k-way five-sorter", counts5)
 
 
-def _phase12_staged_large(counters, smi, n=512):
+def _phase12_staged_large(smi, n=512):
     """The staged hybrid DirectSort and the staged MEHP24 triangle over two
     tiles, as `large_sort.staged_hybrid` and `staged_mehp24` configure them,
     each sorting the same input twice from keys made once: the second sort
@@ -709,7 +697,6 @@ def _phase12_staged_large(counters, smi, n=512):
     from fhe_sorting_tpu_torch.core import trace
     from fhe_sorting_tpu_torch.utils import large_sort
 
-    k2 = 0
     for label, build in (("staged hybrid", large_sort.staged_hybrid),
                          ("staged MEHP24", large_sort.staged_mehp24)):
         t0 = time.time()
@@ -724,7 +711,7 @@ def _phase12_staged_large(counters, smi, n=512):
         runs, peak = [], 0.0
         for _ in range(2):
             with trace.recording():
-                out, secs, counts = _counted(counters, lambda: sort(ct))
+                out, secs, counts = _counted(lambda: sort(ct))
             peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
             spans = trace.spans()
             runs.append((out, secs, counts, [s for s in spans if "kind" in s.counts],
@@ -740,7 +727,7 @@ def _phase12_staged_large(counters, smi, n=512):
               f"{secs0:.2f}s, second {secs:.2f}s ("
               + ", ".join(f"{k} {v:.2f}s" for k, v in phases.items())
               + f" on the device), {len(disp)} dispatches {kinds}, NTT planes {planes[1]} (first "
-              f"{planes[0]}), K1, K2, K3, K4 launches {counts} (first {counts0}), output level "
+              f"{planes[0]}), launches {counts} (first {counts0}), output level "
               f"{out.level}; max sort error {err:.3e} ({smi})")
         _check_memory(label, max(info["reports"], key=lambda r: r["used_gib"]), peak, smi)
         if not np.all(np.isfinite(got)) or not err < 0.01:
@@ -751,13 +738,12 @@ def _phase12_staged_large(counters, smi, n=512):
             raise AssertionError(f"{label}: the second sort's output differs from the first's")
         if keys.rot.keys() != rot.keys() or any(keys.rot[g] is not k for g, k in rot.items()):
             raise AssertionError(f"{label}: the sorts changed the key set")
-        k2 += _require_k2_only(label, counts)
+        _require(label, counts)
         del ctx, keys, sort, info, ct, out, out0, runs, rot
         _release()
-    return k2
 
 
-def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
+def _phase13_sharded(smi, n=1024, n_mehp=512):
     """The multi-device sorts on a one-rank NCCL world on this card, each
     eagerly and on CUDA graphs (its stages captured, the all-reduces
     between them) from the same keys and input: the sharded DirectSort at
@@ -766,21 +752,20 @@ def _phase13_sharded(counters, smi, n=1024, n_mehp=512):
     budget its memory was reckoned with; and a limb-parallel mult + rescale
     + rotate on a (1 x 1) mesh, eagerly and as a captured stage with its
     collectives (the key switch's all-gathers, the rescale's broadcasts)
-    inside, bit-equal to the plain evaluator.  Returns the K2 launches of
-    the counted sorts and ops."""
+    inside, bit-equal to the plain evaluator."""
     from fhe_sorting_tpu_torch.utils import large_sort
 
     return large_sort.one_rank_world(
-        lambda mesh: _sharded_sorts(mesh, counters, smi, n, n_mehp))
+        lambda mesh: _sharded_sorts(mesh, smi, n, n_mehp))
 
 
-def _both_ways(label, make, run, counters, smi, reports):
+def _both_ways(label, make, run, smi, reports):
     """`run(srt)` of the sort `make(graphs)` eagerly (`graphs=False`) and on
     graphs: a warm-up, then a sort counted with `_counted`, each way; every
     peak held to that way's reckoning (`reports[graphs]`).  Returns the
-    counted outputs, the K2 launches of the sort on graphs, and the sort on
-    graphs.  The launches (K1 to K4) must agree both ways."""
-    outs, k2, launched = {}, {}, {}
+    counted outputs and the sort on graphs.  The launches must agree both
+    ways."""
+    outs, launched = {}, {}
     for graphs in (False, True):
         way = "on graphs" if graphs else "eager"
         srt = make(None if graphs else False)
@@ -790,7 +775,7 @@ def _both_ways(label, make, run, counters, smi, reports):
         _sync()
         warm_s = time.time() - t0
         warm_peak = torch.cuda.max_memory_allocated() / 2**30
-        outs[graphs], secs, counts = _counted(counters, lambda: run(srt))
+        outs[graphs], secs, counts = _counted(lambda: run(srt))
         peak = torch.cuda.max_memory_allocated() / 2**30
         st = srt.stages
         print(f"# {label} {way}: warm-up {warm_s:.2f}s, sort {secs:.2f}s; {len(st)} stages, "
@@ -798,15 +783,13 @@ def _both_ways(label, make, run, counters, smi, reports):
               f"warm-up, {sum(g.calls for g in st.values())} dispatches over both sorts; peak "
               f"{warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB in the sort ({smi})")
         _check_memory(f"{label} {way}", reports[graphs], max(warm_peak, peak), smi)
-        k2[graphs] = _require_k2_only(f"{label} {way}", counts)
+        _require(f"{label} {way}", counts)
         launched[graphs] = counts
-    if launched[True] != launched[False]:
-        raise AssertionError(f"{label}: (K1, K2, K3, K4) launches on graphs {launched[True]} != "
-                             f"eager {launched[False]}")
-    return outs, k2[True], srt
+    _same(label, launched[True], launched[False], "on graphs against eager")
+    return outs, srt
 
 
-def _sharded_sorts(mesh, counters, smi, n, n_mehp):
+def _sharded_sorts(mesh, smi, n, n_mehp):
     from fhe_sorting_tpu_torch.parallel.direct_sharded import ShardedDirectSort
     from fhe_sorting_tpu_torch.parallel.limb_parallel import LimbParallelEvaluator
     from fhe_sorting_tpu_torch.parallel.mehp24_sharded import ShardedMehp24
@@ -833,11 +816,11 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
           f"{setup_s:.1f}s ({len(keys.rot)} rotation keys + relin) ({smi})")
     x = np.random.default_rng(0).permutation(n) / n + 0.5 / n
     ct = keys.encrypt(x, slots=n)
-    outs, k2, srt = _both_ways(
+    outs, srt = _both_ways(
         f"sharded DirectSort N={n}",
         lambda graphs: srt if graphs is None else ShardedDirectSort(srt.ev, n, srt.cfg,
                                                                     mesh=mesh, graphs=False),
-        lambda s: s(ct), counters, smi, reckoned)
+        lambda s: s(ct), smi, reckoned)
     if not torch.equal(outs[True].data, outs[False].data):
         raise AssertionError("sharded DirectSort: the sort on graphs differs from the eager sort")
     got = keys.decrypt(outs[True], n)
@@ -863,9 +846,8 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
     for seed in (7, 8):
         y = keys.encrypt(np.random.default_rng(seed).uniform(-1, 1, RING // 2), seed=seed)
         plain = ev.rotate(ev.rescale(ev.mult(y, y)), 1)
-        eager, limb_s, counts_e = _counted(counters, lambda: limb_ops([lp.ingest(y)]))
-        staged, graph_s, counts = _counted(
-            counters, lambda: table.run("limb", limb_ops, [lp.ingest(y)]))
+        eager, limb_s, counts_e = _counted(lambda: limb_ops([lp.ingest(y)]))
+        staged, graph_s, counts = _counted(lambda: table.run("limb", limb_ops, [lp.ingest(y)]))
         if not (torch.equal(eager.data, plain.data) and torch.equal(staged.data, plain.data)):
             raise AssertionError("limb-parallel mult + rescale + rotate differs from the plain one")
     if not table.graphs or table.graph_count() != 1 or table["limb"].calls != 2:
@@ -875,11 +857,9 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
           f"{graph_s:.3f}s on a new "
           f"input, each bit-equal to the plain evaluator; capture {table.capture_seconds():.2f}s "
           f"({smi})")
-    k2 += _require_k2_only("limb-parallel eager", counts_e)
-    k2 += _require_k2_only("limb-parallel replay", counts)
-    if counts != counts_e:
-        raise AssertionError(f"limb-parallel: (K1, K2, K3, K4) launches replayed {counts} != "
-                             f"eager {counts_e}")
+    _require("limb-parallel eager", counts_e)
+    _require("limb-parallel replay", counts)
+    _same("limb-parallel", counts, counts_e, "replayed against eager")
     del ctx, keys, srt, info, ct, outs, ev, lp, table, y, plain, eager, staged
     _release()
 
@@ -899,11 +879,11 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
         pad = np.zeros(info["slots"])
         pad[:tile] = x[i * tile:(i + 1) * tile]
         parts.append(keys.encrypt(pad, slots=info["slots"]))
-    outs, k2_m, srt = _both_ways(
+    outs, srt = _both_ways(
         f"sharded MEHP24 N={n_mehp}",
         lambda graphs: srt if graphs is None else ShardedMehp24(
             srt.ev, tile, len(parts), *srt.cfg, mesh=mesh, graphs=False),
-        lambda s: s(parts), counters, smi, reckoned)
+        lambda s: s(parts), smi, reckoned)
     if not all(torch.equal(a.data, b.data) for a, b in zip(outs[True], outs[False])):
         raise AssertionError("sharded MEHP24: the sort on graphs differs from the eager sort")
     got = np.concatenate([keys.decrypt(c, tile) for c in outs[True]])
@@ -915,15 +895,14 @@ def _sharded_sorts(mesh, counters, smi, n, n_mehp):
         raise AssertionError(f"sharded MEHP24: sort error {err} >= 0.01")
     del ctx, keys, srt, info, parts, outs
     _release()
-    return k2 + k2_m
 
 
-def _phase17_limb_sort(counters, smi, n=N, ranks=2):
+def _phase17_limb_sort(smi, n=N, ranks=2):
     """The sharded DirectSort of n values on a (1 x 1) and a (1 x `ranks`)
     mesh of gloo processes on this card, eagerly, the limbs and the key
     rows split over the limb ranks (`utils.multichip.run_limb_sort`; the
     module docstring, phase 17); gloo moves the CUDA tensors through host
-    memory.  Returns the K2 launches of every rank's sort."""
+    memory."""
     from fhe_sorting_tpu_torch.utils import hbm_budget, multichip
 
     tmp = tempfile.mkdtemp(prefix="fhe_limb_")
@@ -943,26 +922,21 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     one = res[1][0]
-    k2 = 0
     for world, rs in res.items():
         for rank, r in enumerate(rs):
             label = f"limb-parallel N={n} (1 x {world}) rank {rank}"
             report = json.loads(str(r["report"]))
-            fs, bf, k3, k4 = (int(x) for x in r["launches"])
+            counts = json.loads(str(r["launches"]))
             ks = [int(x) for x in r["ks_planes"]]
             print(f"# {label}: setup {float(r['setup_s']):.2f}s, sort {float(r['sort_s']):.3f}s "
-                  f"(the first: its plaintexts encoded on the way); K2 launches {bf}, K1 {fs}, "
-                  f"K3 {k3}, K4 {k4}; "
+                  f"(the first: its plaintexts encoded on the way); "
                   f"keys {int(r['n_keys'])} x its rows = {int(r['key_bytes']) / 2**30:.3f} GiB; "
                   f"NTT/INTT planes in ModUp, ModDown, rescale {ks} = {sum(ks)}, in plaintext "
                   f"encodes {int(r['pt_planes'])}; gathered {int(r['gathered']) * 8 / 2**20:.1f} "
                   f"MiB, broadcast {int(r['broadcast']) * 8 / 2**20:.1f} MiB in "
                   f"{int(r['collectives'])} collectives ({smi})")
             _check_memory(label, report, float(r["peak_gib"]), smi)
-            if bf <= 0 or fs != 0:
-                raise AssertionError(f"{label}: a butterfly context must launch K2 and not K1")
-            _require_k34(label, k3, k4)
-            k2 += bf
+            _require(label, counts)
             if not (np.array_equal(r["data"], one["data"])
                     and tuple(r["meta"]) == tuple(one["meta"])):
                 raise AssertionError(f"{label}: the gathered output differs from one rank's")
@@ -980,17 +954,15 @@ def _phase17_limb_sort(counters, smi, n=N, ranks=2):
               f"{int(rs[0]['meta'][0])}; max sort error {err:.3e} ({smi})")
         if not err < 0.01:
             raise AssertionError(f"limb-parallel N={n} (1 x {world}): sort error {err} >= 0.01")
-    return k2
 
 
-def _phase14_scan(ctx2, counters, smi):
+def _phase14_scan(ctx2, smi):
     """ScanDirectSort eagerly and on graphs: N=128 at ring 2^17 on the per-op
     path's butterfly context (one batch), and N=64 at ring 2^12 (two
     batches: the body is replayed with its carry), each on its own keys.  The sort on graphs
     runs a warm-up (eager runs and captures, filling the plaintext memo),
     then the eager sort and a sort of replays run, each counted, so both
-    find the memo warm; returns the replays' K2 launches, summed over both
-    rings.  Each peak is held to the budget whole; the ring-2^12 sort's,
+    find the memo warm.  Each peak is held to the budget whole; the ring-2^12 sort's,
     less what was allocated before its context was made (the ring-2^17
     context and what else other phases still hold, far more than its own
     sort needs), to its reckoning, which counts the path's fixed cost
@@ -1004,7 +976,6 @@ def _phase14_scan(ctx2, counters, smi):
     from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
     from fhe_sorting_tpu_torch.utils.params_registry import direct_sort_sign_cfg
 
-    k2 = 0
     for n, ring in ((N, RING), (64, 1 << 12)):
         cfg = SignConfig(CompositeSignConfig(*direct_sort_sign_cfg(n)))
         outside = 0.0
@@ -1033,8 +1004,8 @@ def _phase14_scan(ctx2, counters, smi):
         _sync()
         warm_s = time.time() - t0
         warm_peak = torch.cuda.max_memory_allocated() / 2**30
-        out_e, eager_s, counts_e = _counted(counters, lambda: eager(ct))
-        out, secs, counts = _counted(counters, lambda: srt(ct))
+        out_e, eager_s, counts_e = _counted(lambda: eager(ct))
+        out, secs, counts = _counted(lambda: srt(ct))
         peak = torch.cuda.max_memory_allocated() / 2**30
         got = kset.decrypt(out, n)
         err = float(np.abs(got - np.sort(x)).max())
@@ -1048,17 +1019,15 @@ def _phase14_scan(ctx2, counters, smi):
         _check_memory(f"scan N={n}", report, max(warm_peak, peak), smi, outside)
         if not torch.equal(out.data, out_e.data):
             raise AssertionError(f"scan N={n}: the sort on graphs differs from the eager sort")
-        if counts != counts_e:
-            raise AssertionError(f"scan N={n}: launches on graphs {counts} != eager {counts_e}")
+        _same(f"scan N={n}", counts, counts_e, "on graphs against eager")
         if not np.all(np.isfinite(got)) or got.shape != (n,) or not err < 0.01:
             raise AssertionError(f"scan N={n}: sort error {err} >= 0.01")
-        k2 += _require_k2_only(f"scan N={n} on graphs", counts)
+        _require(f"scan N={n} on graphs", counts)
         del eager, srt, ev, ct, out, out_e, kset, ctx
         _release()
-    return k2
 
 
-def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
+def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, smi):
     """The gather-free automorphism (`core/auto_affine.py`) on phase 5's K1
     context and keys: (a) the microbenchmark at [2, Lq, 2^17] and on one
     hoisted operand [3, Lq+K, 2^17], the affine path equal to the gather for
@@ -1067,8 +1036,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
     output equal to phase 5's gather sort `out_ref` (seconds `gather_s`, by
     label: eager and on graphs); (c) the experiment
     ladder (DirectSort N=4, 8, three trials, ring 2048) and its aggregate;
-    (d) the decrypt probe; (e) the rotation bench.  Returns the K1 launches
-    of the affine sort on graphs and the K2 launches of (c)-(e)."""
+    (d) the decrypt probe; (e) the rotation bench."""
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.parallel.direct_staged import StagedDirectSort
     from fhe_sorting_tpu_torch.utils import (
@@ -1110,7 +1078,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         return apply_auto(*a, **kw)
 
     ev._apply_auto = counted_auto
-    k1_graphs, k34_ways = 0, {}
+    ways = {}
     for (label, graphs), ref_s in zip((("affine sort eager", False), ("affine sort on graphs", None)),
                                       gather_s):
         report = hbm_budget.check_phase(
@@ -1124,7 +1092,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         warm_s = time.time() - t0
         warm_peak = torch.cuda.max_memory_allocated() / 2**30
         autos[0] = 0
-        out, secs, (k1, k2, k3, k4) = _counted(counters, lambda: srt(ct))
+        out, secs, counts = _counted(lambda: srt(ct))
         peak = torch.cuda.max_memory_allocated() / 2**30
         got = keys.decrypt(out, N)
         err = float(np.abs(got - np.sort(vals)).max())
@@ -1132,8 +1100,7 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         for (op, *_), v in srt.stage_stats().items():
             per_sort[op] = per_sort.get(op, 0) + v // srt.stages["D"].calls
         print(f"# {label} N={N} (K1 context, FHE_AFFINE_AUTO=1): warm-up {warm_s:.3f}s, sort "
-              f"{secs:.3f}s against {ref_s:.3f}s by the gather (phase 5); K1 launches {k1}, K2 launches "
-              f"{k2}, K3 launches {k3}, K4 launches {k4}; automorphisms a sort: "
+              f"{secs:.3f}s against {ref_s:.3f}s by the gather (phase 5); automorphisms a sort: "
               f"{per_sort.get('rot', 0)} rotations "
               f"(op_stats), {per_sort.get('mult_pt', 0)} plaintext products, {autos[0]} affine automorphisms "
               f"run from Python in the timed sort (0 on graphs: replays); graphs "
@@ -1143,18 +1110,13 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
         _check_memory(label, report, max(peak, warm_peak), smi)
         if not torch.equal(out.data, out_ref.data):
             raise AssertionError(f"{label}: output planes differ from phase 5's gather sort")
-        if k1 <= 0 or k2 != 0:
-            raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
-        k34_ways[graphs] = _require_k34(label, k3, k4)
+        _require(label, counts, "k1")
+        ways[graphs] = counts
         if not np.all(np.isfinite(got)) or not err < 0.01:
             raise AssertionError(f"{label}: sort error {err} >= 0.01")
-        if graphs is None:
-            k1_graphs = k1
         del srt, out
         _release()
-    if k34_ways[None] != k34_ways[False]:
-        raise AssertionError(f"affine: (K3, K4) launches on graphs {k34_ways[None]} != eager "
-                             f"{k34_ways[False]}")
+    _same("affine", ways[None], ways[False], "on graphs against eager")
     del ev, tables
     _release()
 
@@ -1162,10 +1124,10 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
     tmp = tempfile.mkdtemp(prefix="fhe_ladder_")
     try:
         out_dir = os.path.join(tmp, "direct")
-        rows, secs, counts = _counted(counters, lambda: experiments.main(
+        rows, secs, counts = _counted(lambda: experiments.main(
             ["--algo", "direct", "--sizes", "4", "8", "--trials", "3", "--out", out_dir]))
         total = experiments.aggregate(out_dir)
-        k2 = _require_k2_only("ladder", counts)
+        _require("ladder", counts)
         for row in total["results"]:
             print(f"# ladder row ({secs:.1f}s in all, ring 2048): {json.dumps(row)} ({smi})")
             if not 2.0 ** row["max_err_log2"] < 0.01:
@@ -1174,76 +1136,36 @@ def _phase15_affine(ctx, keys, ct, vals, cfg, out_ref, gather_s, counters, smi):
             raise AssertionError("ladder: the aggregate differs from the rows the run wrote")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    res, secs, counts = _counted(counters, lambda: probe_direct.main(["--n", "16", "--ring", "4096"]))
+    res, secs, counts = _counted(lambda: probe_direct.main(["--n", "16", "--ring", "4096"]))
     print(f"# probe DirectSort N=16, ring 2^12: rank error {res['rank_err']:.3e}, sort error "
           f"{res['sort_err']:.3e}, constructRank {res['t_rank_s']:.3f}s, rotationIndexCheckN "
           f"{res['t_idx_s']:.3f}s ({smi})")
     if not res["sort_err"] < 0.01:
         raise AssertionError(f"probe: sort error {res['sort_err']} >= 0.01")
-    k2 += _require_k2_only("probe", counts)
-    res, secs, counts = _counted(counters, lambda: rotation_bench.main(
+    _require("probe", counts)
+    res, secs, counts = _counted(lambda: rotation_bench.main(
         ["--ring", "4096", "--chains", "1", "5", "10"]))
     print(f"# rotation bench, ring 2^12: {json.dumps(res['results'])} ({smi})")
-    k2 += _require_k2_only("rotation bench", counts)
-    return k1_graphs, k2
+    _require("rotation bench", counts)
 
 
-def _phase16_entry_points(counters, smi):
+def _phase16_entry_points(smi):
     """The port's entry points for the system's own measurements, each run
-    as a user runs it: (a) the flagship benchmark (`utils/bench.py`) at
-    N=128 with one timed trial, as a subprocess through its orchestrator,
-    its result line held to `bench.py`'s keys, an error below 0.01, the
-    128-bit budget and a share of the speed of light in (0, 105)%, and K1
-    launched in its timed sort (its worker's count); (b) the NTT
-    microbenchmark (`utils/ntt_bench.py`) at its defaults, every transform,
-    forward and inverse, bit-equal to the plain butterfly; (c) K1 held to its
-    plain version on the bootstrap harness's chain, then the harness
-    (`utils/run_bootstrap.py`) at its defaults, ring 2^14 under a sparse
-    secret on K1, max error below 1e-2; (d) K3 against its plain versions at
+    as a user runs it: (a) the NTT microbenchmark (`utils/ntt_bench.py`) at
+    its defaults, every transform, forward and inverse, bit-equal to the
+    plain butterfly; (b) K1 held to its plain version on the bootstrap
+    harness's chain, then the harness (`utils/run_bootstrap.py`) at its
+    defaults, ring 2^14 under a sparse secret on K1, max error below 1e-2,
+    its refresh counted; (c) K3 against its plain versions at
     the top of `direct_n128`'s chain (`_k3_check`), and K4 against its plain
     version at the top of `mehp24_n512`'s and `direct_n128`'s (`_k4_check`).
-    Returns the (K1, K2) launches of the bench's timed sort and of the
-    refresh, K1's largest difference from its plain version, and K3's and
+    Returns K1's largest difference from its plain version, and K3's and
     K4's records; the launches of the NTT bench and of the checks only time
     and compare the kernels, and are not counted."""
     from fhe_sorting_tpu_torch.core import fs_ntt, ntt_mxu
-    from fhe_sorting_tpu_torch.utils import bench, ntt_bench, run_bootstrap
+    from fhe_sorting_tpu_torch.utils import ntt_bench, run_bootstrap
 
-    # -- (a) the flagship benchmark, in its own worker process
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "fhe_sorting_tpu_torch.utils.bench", "--n",
-                           str(N), "--trials", "1"], capture_output=True, text=True, env=env,
-                          cwd=root)
-    secs = time.time() - t0
-    for line in proc.stderr.strip().splitlines()[-30:]:
-        print(f"# bench stderr | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"bench: exit code {proc.returncode}")
-    line = proc.stdout.strip().splitlines()[-1]
-    print(f"# bench line (N={N}, one timed trial, {secs:.1f}s in all): {line}")
-    res = json.loads(line)
-    keys = {"metric", "unit", "value", "vs_baseline", "max_error", "err_method", "phase_s",
-            "phase_pct_of_sol", "logqp_bits", "logqp_128bit_budget", "security_128bit",
-            "pct_of_sol", "sol_bound_s", "baseline_ref_s", "baseline_src"}
-    if set(res) != keys:
-        raise AssertionError(f"bench: keys {sorted(res)} are not bench.py's")
-    if not (res["max_error"] < 0.01 and res["security_128bit"] is True
-            and res["err_method"] == "decrypt" and res["value"] > 0
-            and 0 < res["pct_of_sol"] < 105):
-        raise AssertionError(f"bench: result out of bounds: {res}")
-    k1_bench, k2_bench, k3_bench, k4_bench = map(
-        int, bench.LAUNCH_LINE.search(proc.stderr).groups())
-    print(f"# bench: K1 launches {k1_bench}, K2 launches {k2_bench}, K3 launches {k3_bench}, K4 "
-          f"launches {k4_bench} in the timed sort ({smi})")
-    if k1_bench <= 0:
-        raise AssertionError("bench: the timed sort did not launch K1")
-    _require_k34("bench", k3_bench, k4_bench)
-
-    # -- (b) the NTT microbenchmark; its launches compare and time, uncounted
-    saved = [mod.launches for mod in counters]
+    # -- (a) the NTT microbenchmark; its launches compare and time, uncounted
     buf = io.StringIO()
     t0 = time.time()
     _quiet(buf, lambda: ntt_bench.main([]))
@@ -1253,11 +1175,9 @@ def _phase16_entry_points(counters, smi):
     if len(exact) != 6 or not all(line.endswith(": True") for line in exact):
         raise AssertionError(f"ntt_bench: {exact}")
     print(f"# ntt_bench at its defaults: {time.time() - t0:.1f}s")
-    for mod, n in zip(counters, saved):
-        mod.launches = n
     _release()
 
-    # -- (c) the bootstrap harness at its defaults (ring 2^14, K1), after K1
+    # -- (b) the bootstrap harness at its defaults (ring 2^14, K1), after K1
     # against its plain version on that chain (n1 = n2 = 128): every prime,
     # and the key switch's extended set at the refresh's input level
     bctx = run_bootstrap.harness_context(run_bootstrap.parser().parse_args([]))
@@ -1280,20 +1200,16 @@ def _phase16_entry_points(counters, smi):
     tmp = tempfile.mkdtemp(prefix="fhe_boot_")
     try:
         buf = io.StringIO()
-        out, secs, counts = _counted(counters, lambda: _quiet(buf, lambda: run_bootstrap.main(
+        out, secs, counts = _counted(lambda: _quiet(buf, lambda: run_bootstrap.main(
             ["--out", os.path.join(tmp, "level_budgets.json")])))
         print(f"# run_bootstrap row: {buf.getvalue().strip()} ({smi})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    k1_boot, k2_boot, k3_boot, k4_boot = counts
-    print(f"# run_bootstrap: K1 launches {k1_boot}, K2 launches {k2_boot}, K3 launches "
-          f"{k3_boot}, K4 launches {k4_boot}; {secs:.1f}s in all")
+    print(f"# run_bootstrap: {secs:.1f}s in all")
     if not out["max_err"] < 1e-2:
         raise AssertionError(f"run_bootstrap: max error {out['max_err']} >= 1e-2")
-    if k1_boot <= 0:
-        raise AssertionError("run_bootstrap: the refresh did not launch K1")
-    _require_k34("run_bootstrap", k3_boot, k4_boot)
-    return k1_bench + k1_boot, k2_bench + k2_boot, k1_err, _k3_check(smi), _k4_check(smi)
+    _require("run_bootstrap", counts, "k1")
+    return k1_err, _k3_check(smi), _k4_check(smi)
 
 
 def _k3_check(smi):
@@ -1451,8 +1367,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from fhe_sorting_tpu_torch.core import (
-        bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu, rns_bconv, rns_div)
+    import importlib
+
+    from fhe_sorting_tpu_torch.core import bf_ntt, fs_ntt, ntt, ntt_mxu
     from fhe_sorting_tpu_torch.core import primes as primes_mod
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
     from fhe_sorting_tpu_torch.core.keys import Keys
@@ -1474,16 +1391,17 @@ def main() -> int:
 
     # -- phase 2: build K1 to K4 ----------------------------------------------
     t0 = time.time()
-    cuda_build.build(["fs_ntt", "bf_ntt", "rns_div", "rns_bconv"])
-    for mod in (fs_ntt, bf_ntt, rns_div, rns_bconv):
-        mod.load()
+    sources = [k.source for k in cuda_build.KERNELS.values()]
+    cuda_build.build(sources)
+    for name in sources:
+        importlib.import_module(f"fhe_sorting_tpu_torch.core.{name}").load()
     print(f"# K1 + K2 + K3 + K4 build (in parallel) + load: {time.time() - t0:.2f}s")
     for name, (secs, report) in cuda_build.reports.items():
         print(f"# nvcc {name}.cu: {secs:.2f}s")
         print("# " + report.strip().replace("\n", "\n# "))
 
     # -- phase 3: K1 against its plain version ---------------------------------
-    # the bench's chain (`profile_sort.sort_context`): the metered depth,
+    # the N=128 chain (`profile_sort.sort_context`): the metered depth,
     # which the per-op sort needs too
     t0 = time.time()
     ctx, cfg, depth = sort_context(N, "staged")
@@ -1600,44 +1518,32 @@ def main() -> int:
     print(f"# staged: keys ({len(keys.rot)} rotation + relin) {time.time() - t0:.2f}s")
     ct = keys.encrypt(vals)
     staged = {}
-    counters = (fs_ntt, bf_ntt, rns_div, rns_bconv)
     for label, graphs in (("staged eager", False), ("staged on graphs", None)):
         report = hbm_budget.check_phase(
             ctx, len(scan), 4, work_cts=hbm_budget.work_cts("direct_staged", graphs is None),
             label=f"{label} N={N}")
         srt = StagedDirectSort(ev, N, cfg, graphs=graphs)
         staged[label] = (srt, *_run_sort(label, keys, ct, vals, srt, srt.construct_rank,
-                                         srt.index_check, counters, smi, report))
-        k1_count, k2_stray, k3_count, k4_count = staged[label][1]
-        print(f"# {label}: K1 launches {k1_count}, K2 launches {k2_stray}, K3 launches "
-              f"{k3_count}, K4 launches {k4_count}; stage calls: "
-              f"{ {name: st.calls for name, st in srt.stages.items()} }")
-        if k1_count <= 0 or k2_stray != 0:
-            raise AssertionError(f"{label}: the staged path must launch K1 and not K2")
-        _require_k34(label, k3_count, k4_count)
+                                         srt.index_check, smi, report))
+        print(f"# {label}: stage calls: { {name: st.calls for name, st in srt.stages.items()} }")
+        _require(label, staged[label][1], "k1")
         del srt
         _release()
-    (_, (k1_eager, _, *k34_eager), eager_s, _, out_e, _), (
-        srt, (k1_launches, _, *k34_graphs), staged_s, phase_s, out_g,
-        (warm_s, warm_peak, peak)) = staged.values()
+    (_, counts_e, eager_s, _, out_e, _), (
+        srt, counts, staged_s, phase_s, out_g, (warm_s, warm_peak, peak)) = staged.values()
     if not torch.equal(out_e.data, out_g.data):
         raise AssertionError("staged: the sort on graphs differs from the eager sort")
-    if k1_launches != k1_eager:
-        raise AssertionError(f"staged: K1 launches on graphs {k1_launches} != eager {k1_eager}")
-    if k34_graphs != k34_eager:
-        raise AssertionError(f"staged: (K3, K4) launches on graphs {k34_graphs} != eager "
-                             f"{k34_eager}")
+    _same("staged", counts, counts_e, "on graphs against eager")
     print(f"# staged N={N} on K1: eager {eager_s:.3f}s, on graphs {staged_s:.3f}s (output planes "
           f"equal); {srt.stages.graph_count()} graphs, captured in {srt.stages.capture_seconds():.2f}s "
-          f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {k1_launches} (replay tallies); "
+          f"of a {warm_s:.2f}s warm-up sort; K1 launches a sort {counts['k1']} (replay tallies); "
           f"peak {warm_peak:.2f} GiB in the warm-up, {peak:.2f} GiB replaying ({smi})")
     _roofline_line(ctx, srt, phase_s, smi)
     del staged, srt, ev, out_e
     _release()
 
     # -- phase 15: the gather-free automorphism on phase 5's context and keys
-    k1_affine, k2_phase15 = _phase15_affine(ctx, keys, ct, vals, cfg, out_g, (eager_s, staged_s),
-                                            counters, smi)
+    _phase15_affine(ctx, keys, ct, vals, cfg, out_g, (eager_s, staged_s), smi)
     del keys, ctx, fs, k1, ct, out_g
     _release()
 
@@ -1657,8 +1563,8 @@ def main() -> int:
         "per-op", keys, keys.encrypt(vals), vals,
         lambda ct: srt.sort(ct, SignFunc.CompositeSign, cfg),
         lambda ct: srt.construct_rank(ct, SignFunc.CompositeSign, cfg),
-        srt.rotation_index_check_n, counters, smi, report)
-    k2_launches = _require_k2_only("per-op", counts)
+        srt.rotation_index_check_n, smi, report)
+    _require("per-op", counts)
     print(f"# per-op: over the three sorts: {srt.rot.stats}")
     print(f"# sorts side by side: staged on K1 {staged_s:.3f}s on graphs, {eager_s:.3f}s "
           f"eager; per-op on K2 {per_op_s:.3f}s ({smi})")
@@ -1666,55 +1572,44 @@ def main() -> int:
 
     # -- phases 7-14: the serving path, the scan sorts, what stands behind the
     # server, the k-way network, the staged N>256 regimes, the sharded sorts ---
-    by_phase = {"per-op sort": k2_launches}
-    by_phase["serve"] = _phase7_serve(ctx2, keys, counters, smi)
+    _phase7_serve(ctx2, keys, smi)
     del keys
     _release()
-    by_phase["scan sorts"] = _phase14_scan(ctx2, counters, smi)
-    by_phase["ladder, probe, rotation bench"] = k2_phase15
+    _phase14_scan(ctx2, smi)
     del ctx2, bf, k2
     _release()
-    for name, phase in (("bootstrap", _phase8_bootstrap), ("bitonic", _phase9_bitonic),
-                        ("mehp24", _phase10_mehp24), ("characterizer", _characterizer_line),
-                        ("k-way", _phase11_kway), ("staged N>256 regimes", _phase12_staged_large),
-                        ("sharded sorts", _phase13_sharded),
-                        ("limb-parallel sort", _phase17_limb_sort)):
-        by_phase[name] = phase(counters, smi)
+    for phase in (_phase8_bootstrap, _phase9_bitonic, _phase10_mehp24, _characterizer_line,
+                  _phase11_kway, _phase12_staged_large, _phase13_sharded, _phase17_limb_sort):
+        phase(smi)
         _release()
     # -- phase 16: the entry points of the system's own measurements --------
-    k1_entry, by_phase["bench, run_bootstrap"], k1_err16, k3, k4 = _phase16_entry_points(
-        counters, smi)
+    k1_err16, k3, k4 = _phase16_entry_points(smi)
     k1_err = max(k1_err, k1_err16)
     _release()
-    k2_launches = sum(by_phase.values())
-    print(f"# K2 launches by phase: {by_phase}; K1 launches: staged sort {k1_launches} by the "
-          f"gather, {k1_affine} on the affine path (each a sort on graphs), {k1_entry} in phase "
-          f"16 (the bench's timed sort and the bootstrap harness's refresh)")
-    k1_launches += k1_affine + k1_entry
-    print(f"# K3 launches by counted run: {K3_RUNS}; K3's largest difference from its plain "
-          f"versions {k3['max_abs_err']} (phase 16)")
-    print(f"# K4 launches by counted run: {K4_RUNS}; K4's largest difference from its plain "
-          f"version {k4['max_abs_err']} (phase 16)")
+    launches = {key: sum(c[key] for c in RUNS.values()) for key in cuda_build.KERNELS}
+    print(f"# launches by counted run: {json.dumps(RUNS)}; in all {launches}; the largest "
+          f"difference from the plain versions of K3 {k3['max_abs_err']}, of K4 "
+          f"{k4['max_abs_err']} (phase 16)")
 
     print(json.dumps({"kernels": [
         {"name": "fs_ntt (four-step NTT, K1)", "route": "cuda",
          "source": "fhe_sorting_tpu_torch/csrc/fs_ntt.cu",
          "replaces": "fhe_sorting_tpu/core/pallas_fs_ntt.py:97",
-         "launches": k1_launches, "max_abs_err": k1_err,
+         "launches": launches["k1"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "form_ops_ms": k1_form_ms,
          "library_ms": None},
         {"name": "bf_ntt (butterfly NTT, K2)", "route": "cuda",
          "source": "fhe_sorting_tpu_torch/csrc/bf_ntt.cu",
          "replaces": "fhe_sorting_tpu/core/pallas_ntt.py:66",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "form_ops_ms": k2_form_ms,
          "library_ms": None},
         {"name": "rns_div (exact division by a dropped modulus, K3; one dropped limb's rescale "
                  "at direct_n128's top, [2, 67, 2^17])", "route": "cuda",
          "source": "fhe_sorting_tpu_torch/csrc/rns_div.cu", "replaces": None,
-         "launches": sum(K3_RUNS.values()), "max_abs_err": k3["max_abs_err"],
+         "launches": launches["k3"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": "bytes", "form_ops_ms": None, "library_ms": None,
          "moddown_ms": k3["moddown_ms"], "moddown_plain_ms": k3["moddown_plain_ms"],
@@ -1722,7 +1617,7 @@ def main() -> int:
         {"name": "rns_bconv (the key switch's base extension, K4; the top ModUp of "
                  "mehp24_n512, [96, 2^17] -> [4, 120, 2^17])", "route": "cuda",
          "source": "fhe_sorting_tpu_torch/csrc/rns_bconv.cu", "replaces": None,
-         "launches": sum(K4_RUNS.values()), "max_abs_err": k4["max_abs_err"],
+         "launches": launches["k4"], "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": "bytes", "bound_ms_4byte": k4["bound_ms_4byte"], "form_ops_ms": None,
          "library_ms": None, "moddown_ms": k4["moddown_ms"],

@@ -16,8 +16,8 @@ block as rounds of a few stages in registers.  Where every prime of the
 tables is below 2^30 (`NttTables.lazy`) the butterflies keep residues in
 [0, 4p) and correct them once on the way out.  `cluster_log(logn)` is c: a
 block holds 2^14 residues where the ring has as many.  The kernel is
-compiled with nvcc at first use (`core/cuda_build.py`).  `launches` counts
-kernel launches.
+compiled with nvcc at first use (`core/cuda_build.py`), which counts its
+launches as `k2`.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ from .ntt import NttTables, butterfly_plain
 
 LOG_CHUNK = 14         # residues a block holds: 2^14 u32 = 64 KB (+ padding)
 MAX_LOG_CLUSTER = 3    # 8 blocks: the portable cluster size
-
-launches = 0
 
 
 def load():
@@ -81,18 +79,12 @@ def _check(x: torch.Tensor, t: NttTables, limbs: torch.Tensor):
 
 def _launch(x: torch.Tensor, t: NttTables, limbs: torch.Tensor, inverse: bool, c: int):
     """One launch on checked arguments, with clusters of 2^c blocks."""
-    global launches
     B, L, n = x.shape
     tw = t.ipsi_pack if inverse else t.psi_pack
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):       # the launch goes to the data's card
-        rc = load().bf_ntt_transform(x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-                                     t.p.data_ptr(), t.n_inv.data_ptr(), limbs.data_ptr(),
-                                     n.bit_length() - 1, c, L, B * L, int(inverse), int(t.lazy),
-                                     torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bf_ntt_transform launch failed: CUDA error {rc}")
-    launches += 1
+    cuda_build.launch("k2", load().bf_ntt_transform, x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+                      t.p.data_ptr(), t.n_inv.data_ptr(), limbs.data_ptr(), n.bit_length() - 1,
+                      c, L, B * L, int(inverse), int(t.lazy), device=x.device)
     return out
 
 

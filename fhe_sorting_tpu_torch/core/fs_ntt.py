@@ -12,7 +12,7 @@ The kernel multiplies s8 digit planes on the tensor cores; it reads the
 tables' kernel-side copy (`FourStepTables.kern`: digit planes and packed
 twiddles, made once at table build).  The intermediate between the two
 launches is the kernel's own, u32 residues.  The kernel is compiled with
-nvcc at first use (`core/cuda_build.py`).  `launches` counts kernel launches.
+nvcc at first use (`core/cuda_build.py`), which counts its launches as `k1`.
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ from .ntt_mxu import INT64_TABLES, FourStepTables, ntt_plain
 
 _TILE = 64          # n1 and n2 must be multiples of the kernel's smallest table tile
 _MAX_K = 512        # the deepest product whose digit sums the kernel proves to fit s32
-
-launches = 0
 
 
 def load():
@@ -61,15 +59,10 @@ def _check(x: torch.Tensor, t: FourStepTables, limbs: torch.Tensor):
 
 
 def _launch(lib, data, tab, out, tw, mods, limbs, M, N, K, batch, data_a, first):
-    global launches
-    rc = lib.fs_modmm(data.data_ptr(), tab.data_ptr(), out.data_ptr(),
+    cuda_build.launch("k1", lib.fs_modmm, data.data_ptr(), tab.data_ptr(), out.data_ptr(),
                       tw.data_ptr() if tw is not None else None,
                       mods.data_ptr(), limbs.data_ptr(), M, N, K, limbs.shape[0],
-                      batch, data_a, first,
-                      torch.cuda.current_stream(out.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fs_modmm launch failed: CUDA error {rc}")
-    launches += 1
+                      batch, data_a, first, device=out.device)
 
 
 def four_step(x: torch.Tensor, t: FourStepTables, limbs, inverse: bool) -> torch.Tensor:
@@ -87,13 +80,12 @@ def four_step(x: torch.Tensor, t: FourStepTables, limbs, inverse: bool) -> torch
     k = t.kern
     mid = torch.empty(x.shape, dtype=torch.int32, device=x.device)   # u32 residues
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):       # the launches go to the data's card
-        if not inverse:
-            # V = (W1 @ X) * T, then Y = V @ W2
-            _launch(lib, x, k.w1f, mid, k.tf, k.mods, limbs, n1, n2, n1, B, 0, 1)
-            _launch(lib, mid, k.w2f, out, None, k.mods, limbs, n1, n2, n2, B, 1, 0)
-        else:
-            # S = (X @ W2i) * Ti, then Y = W1i @ S
-            _launch(lib, x, k.w2i, mid, k.ti, k.mods, limbs, n1, n2, n2, B, 1, 1)
-            _launch(lib, mid, k.w1i, out, None, k.mods, limbs, n1, n2, n1, B, 0, 0)
+    if not inverse:
+        # V = (W1 @ X) * T, then Y = V @ W2
+        _launch(lib, x, k.w1f, mid, k.tf, k.mods, limbs, n1, n2, n1, B, 0, 1)
+        _launch(lib, mid, k.w2f, out, None, k.mods, limbs, n1, n2, n2, B, 1, 0)
+    else:
+        # S = (X @ W2i) * Ti, then Y = W1i @ S
+        _launch(lib, x, k.w2i, mid, k.ti, k.mods, limbs, n1, n2, n2, B, 1, 1)
+        _launch(lib, mid, k.w1i, out, None, k.mods, limbs, n1, n2, n1, B, 0, 0)
     return out

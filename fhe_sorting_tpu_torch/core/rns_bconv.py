@@ -23,8 +23,8 @@ Each call runs by where its tensor lies:
     stream, or raises.  Nothing falls back.
 
 Zero target rows (a limb rank that owns none) launch nothing.  The kernel is
-compiled with nvcc at first use (`core/cuda_build.py`).  `launches` counts
-kernel launches.
+compiled with nvcc at first use (`core/cuda_build.py`), which counts its
+launches as `k4`.
 """
 
 from __future__ import annotations
@@ -36,8 +36,7 @@ import torch
 from . import cuda_build
 from .modmath import mulmod
 from .ntt_mxu import mod_matmul
-
-launches = 0
+from .rns_div import check_rows
 
 
 def load():
@@ -53,13 +52,6 @@ def base_extend_plain(x: torch.Tensor, hat, pin, fac: torch.Tensor, pout, digits
     y = mulmod(x, hat, pin)
     ext = torch.stack([mod_matmul(fac[:, lo:hi], y[:, lo:hi], pout) for lo, hi in digits], dim=1)
     return ext.flatten(0, 1)
-
-
-def _check_rows(name: str, t: torch.Tensor, dev, rows: int):
-    """One int64 constant a row on `dev`: [rows, 1] (any row stride)."""
-    if t.dtype != torch.int64 or t.device != dev or t.shape != (rows, 1):
-        raise ValueError(f"rns_bconv: {name} must be int64 [{rows}, 1] on {dev}, "
-                         f"not {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _bounds(digits, R: int) -> list:
@@ -101,17 +93,12 @@ def base_extend(x: torch.Tensor, hat: torch.Tensor, pin: torch.Tensor, fac: torc
         raise ValueError(f"rns_bconv: fac must be int64 [{T}, {R}] on {dev} with unit column "
                          f"steps, not {fac.dtype} {tuple(fac.shape)} {fac.stride()} on "
                          f"{fac.device}")
-    _check_rows("hat", hat, dev, R)
-    _check_rows("pin", pin, dev, R)
-    _check_rows("pout", pout, dev, T)
-    global launches
-    with torch.cuda.device(dev):
-        rc = load().rns_bconv(
-            x.data_ptr(), hat.data_ptr(), pin.data_ptr(), fac.data_ptr(), pout.data_ptr(),
-            out.data_ptr(), (ctypes.c_int * (D + 1))(*bounds), D, B, T, R, n, x.stride(0),
-            x.stride(1), hat.stride(0), pin.stride(0), fac.stride(0), pout.stride(0),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"rns_bconv launch failed: CUDA error {rc}")
-    launches += 1
+    check_rows("rns_bconv", "hat", hat, dev, R)
+    check_rows("rns_bconv", "pin", pin, dev, R)
+    check_rows("rns_bconv", "pout", pout, dev, T)
+    cuda_build.launch(
+        "k4", load().rns_bconv, x.data_ptr(), hat.data_ptr(), pin.data_ptr(), fac.data_ptr(),
+        pout.data_ptr(), out.data_ptr(), (ctypes.c_int * (D + 1))(*bounds), D, B, T, R, n,
+        x.stride(0), x.stride(1), hat.stride(0), pin.stride(0), fac.stride(0), pout.stride(0),
+        device=dev)
     return out

@@ -23,8 +23,8 @@ Each entry runs by where its tensor lies:
     stream, or raises.  Nothing falls back.
 
 Zero rows (a limb rank that owns none) launch nothing.  The kernel is
-compiled with nvcc at first use (`core/cuda_build.py`).  `launches` counts
-kernel launches.
+compiled with nvcc at first use (`core/cuda_build.py`), which counts its
+launches as `k3`.
 """
 
 from __future__ import annotations
@@ -35,8 +35,6 @@ import torch
 
 from . import cuda_build
 from .modmath import mulmod, sub_mod
-
-launches = 0
 
 
 def load():
@@ -71,10 +69,11 @@ def _check_planes(name: str, t: torch.Tensor, dev, rows: int, n: int):
                          f"stride from a 16-byte boundary (strides {t.stride()})")
 
 
-def _check_rows(name: str, t: torch.Tensor, dev, rows: int):
-    """One int64 constant a row on `dev`: [rows, 1] (any row stride)."""
+def check_rows(who: str, name: str, t: torch.Tensor, dev, rows: int):
+    """One int64 constant a row on `dev`: [rows, 1] (any row stride); `who`
+    names the caller in the message."""
     if t.dtype != torch.int64 or t.device != dev or t.shape != (rows, 1):
-        raise ValueError(f"rns_div: {name} must be int64 [{rows}, 1] on {dev}, "
+        raise ValueError(f"{who}: {name} must be int64 [{rows}, 1] on {dev}, "
                          f"not {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -85,10 +84,6 @@ def _device(x: torch.Tensor) -> bool:
     if x.device.type != "cuda":
         raise ValueError(f"rns_div: unsupported device {x.device}")
     return True
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def lift(x: torch.Tensor, p: torch.Tensor, c: torch.Tensor, half: int) -> torch.Tensor:
@@ -103,15 +98,11 @@ def lift(x: torch.Tensor, p: torch.Tensor, c: torch.Tensor, half: int) -> torch.
     if r == 0:
         return out
     _check_planes("x", x, x.device, 1, n)
-    _check_rows("p", p, x.device, r)
-    _check_rows("c", c, x.device, r)
-    global launches
-    with torch.cuda.device(x.device):
-        rc = load().rns_lift(x.data_ptr(), out.data_ptr(), p.data_ptr(), c.data_ptr(), half, B,
-                             r, n, x.stride(0), p.stride(0), c.stride(0), _stream(out))
-    if rc != 0:
-        raise RuntimeError(f"rns_lift launch failed: CUDA error {rc}")
-    launches += 1
+    check_rows("rns_div", "p", p, x.device, r)
+    check_rows("rns_div", "c", c, x.device, r)
+    cuda_build.launch("k3", load().rns_lift, x.data_ptr(), out.data_ptr(), p.data_ptr(),
+                      c.data_ptr(), half, B, r, n, x.stride(0), p.stride(0), c.stride(0),
+                      device=x.device)
     return out
 
 
@@ -129,14 +120,9 @@ def sub_scale(a: torch.Tensor, b: torch.Tensor, p: torch.Tensor, w: torch.Tensor
         return out
     _check_planes("a", a, a.device, r, n)
     _check_planes("b", b, a.device, r, n)
-    _check_rows("p", p, a.device, r)
-    _check_rows("w", w, a.device, r)
-    global launches
-    with torch.cuda.device(a.device):
-        rc = load().rns_sub_scale(a.data_ptr(), b.data_ptr(), out.data_ptr(), p.data_ptr(),
-                                  w.data_ptr(), B, r, n, a.stride(0), b.stride(0), p.stride(0),
-                                  w.stride(0), _stream(out))
-    if rc != 0:
-        raise RuntimeError(f"rns_sub_scale launch failed: CUDA error {rc}")
-    launches += 1
+    check_rows("rns_div", "p", p, a.device, r)
+    check_rows("rns_div", "w", w, a.device, r)
+    cuda_build.launch("k3", load().rns_sub_scale, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      p.data_ptr(), w.data_ptr(), B, r, n, a.stride(0), b.stride(0),
+                      p.stride(0), w.stride(0), device=a.device)
     return out

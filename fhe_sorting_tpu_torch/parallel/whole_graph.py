@@ -4,7 +4,7 @@ Port of `fhe_sorting_tpu/parallel/whole_jit.py`.  The JAX package compiles
 each stage of a staged sort into one XLA program with the keys and tables
 as arguments, so a stage is one dispatch.  Here a stage is one CUDA graph
 (`torch.cuda.CUDAGraph`): its kernels (K1 or K2 for every NTT, K3 for the
-rescales' and ModDown's divisions, cuBLAS for the base extensions, PyTorch's
+rescales' and ModDown's divisions, K4 for the base extensions, PyTorch's
 elementwise kernels) are captured once and
 replayed, so a stage costs one graph launch instead of thousands of kernel
 launches from Python.
@@ -29,17 +29,18 @@ calls, as the JAX package passes a sharded step its checking vectors):
     and the call runs as a first call again;
   * `op_counts` is the capture's per-dispatch op tally (the evaluator's
     `op_stats` is restored after it, as `WholeJit` restores it after its
-    abstract pass) and `calls` counts dispatches.  The kernel modules'
-    `launches` counters and the evaluator's `ntt_planes` count what the
+    abstract pass) and `calls` counts dispatches.  The launch counter of
+    `core/cuda_build.py` and the evaluator's `ntt_planes` count what the
     kernels really ran: the capture's launches and planes are taken back,
     and added again at every replay;
   * every dispatch is one span of `core/trace.py`, named `<sort>.<stage>`
     (the `StageTable`'s prefix), whose device interval brackets the
     copy-in, the replay and the clone-out (or the eager call) and whose
     counts are its `kind` ("eager", "capture": the first call on graphs,
-    or "replay"), the NTT `planes` and the K1, K2, K3 and K4 launches
-    (`k1`, `k2`, `k3`, `k4`) it ran, and the `ops` of its tally; a capture
-    is a child span `<sort>.<stage>.capture` without a device interval;
+    or "replay"), the NTT `planes`, the launches it ran of every kernel
+    `cuda_build.KERNELS` registers (`k1` to `k4`), and the `ops` of its
+    tally; a capture is a child span `<sort>.<stage>.capture` without a
+    device interval;
   * nothing falls back: on a CUDA context a failed capture raises.
 
 Streams and memory: the graphs of one sort share a `GraphSet`, one side
@@ -68,12 +69,9 @@ from dataclasses import replace
 
 import torch
 
-from ..core import bf_ntt, fs_ntt, rns_bconv, rns_div, trace
+from ..core import cuda_build, trace
 from ..core.cipher import Ciphertext
 from ..core.keys import KeySwitchKey
-
-# the kernel modules whose `launches` counters a replay advances
-KERNELS = (fs_ntt, bf_ntt, rns_div, rns_bconv)
 
 
 def use_graphs(ev, graphs: bool | None) -> bool:
@@ -186,12 +184,10 @@ class WholeGraph:
             if sp is None:
                 return run(cts)
             planes = self.ev.ntt_planes.total()
-            launches = [mod.launches for mod in KERNELS]
+            launched = cuda_build.counts()
             out = run(cts)
         sp.counts.update(kind=kind, planes=self.ev.ntt_planes.total() - planes,
-                         k1=fs_ntt.launches - launches[0], k2=bf_ntt.launches - launches[1],
-                         k3=rns_div.launches - launches[2], k4=rns_bconv.launches - launches[3],
-                         ops=sum(self.op_counts.values()))
+                         **cuda_build.since(launched), ops=sum(self.op_counts.values()))
         return out
 
     def _eager(self, cts):
@@ -216,7 +212,7 @@ class WholeGraph:
         for buf, c in zip(ins, cts):
             buf.data.copy_(c.data)
         g = torch.cuda.CUDAGraph()
-        before = [mod.launches for mod in KERNELS]
+        launched = cuda_build.counts()
         planes = Counter(ev.ntt_planes)
         ev.op_stats, saved = Counter(), ev.op_stats
         # the capture synchronizes first: the eager call's device work is
@@ -237,9 +233,8 @@ class WholeGraph:
         finally:
             self.op_counts = dict(ev.op_stats)
             ev.op_stats = saved
-            for mod, b in zip(KERNELS, before):
-                self._launches[mod] = mod.launches - b
-                mod.launches = b            # the capture launched nothing
+            self._launches = cuda_build.since(launched)
+            cuda_build.advance(self._launches, -1)   # the capture launched nothing
             self._planes = ev.ntt_planes - planes
             ev.ntt_planes.subtract(self._planes)     # and transformed nothing
         self.capture_s += time.perf_counter() - t0
@@ -252,8 +247,7 @@ class WholeGraph:
     def _replay(self, cts):
         """Copy-in, replay and clone-out; returns the outputs' planes, which
         `_outputs` wraps once the dispatch's span has closed."""
-        for mod, d in self._launches.items():
-            mod.launches += d
+        cuda_build.advance(self._launches)
         self.ev.ntt_planes.update(self._planes)
         for buf, c in zip(self._ins, cts):
             buf.data.copy_(c.data)

@@ -100,10 +100,7 @@ WORK_CTS = {
     # holds the most: a stage's eager working set, then its capture's in the
     # graphs' pool, beside every earlier graph's buffers and outputs.
     # DirectSort N=1024 staged, 29.82 GiB in the warm-up (14.85 replaying):
-    # 10 keys x 0.674 + 4 cts x 0.168 GiB (`large_sort --n 1024 --path staged`).
-    # On a K1 context the same sort (`utils/bench.py`) peaked at 30.95 GiB,
-    # within the 31.50 GiB reckoned with its 1.59 GiB of four-step tables
-    # (`ntt_table_bytes`)
+    # 10 keys x 0.674 + 4 cts x 0.168 GiB (`large_sort --n 1024 --path staged`)
     "direct_staged_graphs": 134,
     # staged hybrid N=512 with its whole key set held and every graph kept
     # across sorts, 30.45 GiB in a sort of replays (30.17 in the warm-up):

@@ -281,24 +281,25 @@ def run_limb_parallel(rank: int, world: int, params, keys_np: dict, cts_np: list
 def run_limb_sort(rank: int, world: int, N: int, out: str, ring: int = 1 << 17) -> None:
     """The sharded DirectSort of N values on a (1 x world) ("batch", "limb")
     mesh of this world's ranks, eagerly (`chip_smoke.py` phase 17 runs it
-    on gloo ranks that share one card), on the bench's chain
+    on gloo ranks that share one card), on the N=128 sort's chain
     (`profile_sort.sort_context(N, "staged", "butterfly")`: ring 2^17, scale
     2^56 from prime pairs, dnum 3, the butterfly NTT; a smaller `ring` for a
     rehearsal on the CPU, which reckons and measures no memory).  Each rank makes its
     rows of the keys from seed 0, row by row (`Keys.rows`), so every world
-    size computes with the same keys, and encrypts the bench's input with
+    size computes with the same keys, and encrypts its input with
     seed 1; it reckons its memory (`hbm_budget.check_phase`, the ranks
-    reckoned together on the card), then sorts once, every kernel's count
-    set to 0 just before and read just after.  Writes `{out}{rank}.npz`:
-    the gathered output planes and metadata, the sort's seconds, its K1,
-    K2, K3 and K4 launches, the error (rank 0), the key bytes held, the limb
+    reckoned together on the card), then sorts once, the kernels' launch
+    counter (`cuda_build.counts()`) set to 0 just before and read just
+    after.  Writes `{out}{rank}.npz`: the gathered output planes and
+    metadata, the sort's seconds, its launches as JSON `{kernel: count}`
+    (`k1` to `k4`), the error (rank 0), the key bytes held, the limb
     planes its key switches and rescales transformed (`ntt_planes`) and its
     plaintext encodes, the residues gathered and broadcast, its peak and
     its reckoning."""
     import json
     import time
 
-    from ..core import bf_ntt, fs_ntt, rns_bconv, rns_div
+    from ..core import cuda_build
     from ..core import ntt as nttm
     from ..core.evaluator import Evaluator
     from ..core.keys import Keys
@@ -332,12 +333,12 @@ def run_limb_sort(rank: int, world: int, N: int, out: str, ring: int = 1 << 17) 
     setup_s = time.time() - t0
     vals = np.random.default_rng(0).permutation(N) / N + 0.5 / N
     ct = keys.encrypt(vals, slots=N, seed=1)
-    fs_ntt.launches = bf_ntt.launches = rns_div.launches = rns_bconv.launches = 0
+    cuda_build.reset()
     t0 = time.time()
     got = srt(ct)
     nttm.synchronize(dev)
     sort_s = time.time() - t0
-    launches = (fs_ntt.launches, bf_ntt.launches, rns_div.launches, rns_bconv.launches)
+    launches = json.dumps(cuda_build.counts())
     err = float(np.abs(keys.decrypt(got, N) - np.sort(vals)).max()) if rank == 0 else -1.0
     np.savez(f"{out}{rank}.npz", data=got.data.cpu().numpy(),
              meta=np.array([got.level, got.sdeg, got.slots]), depth=np.array(depth),

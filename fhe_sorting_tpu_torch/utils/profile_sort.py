@@ -38,11 +38,10 @@ from collections import Counter
 import numpy as np
 import torch
 
-CLASSES = (
-    ("K2 bf_cluster_kernel", ("bf_cluster_kernel",)),
-    ("K1 modmm_kernel", ("modmm_kernel",)),
-    ("K3 rns_div", ("rns_lift_kernel", "rns_sub_scale_kernel")),
-    ("K4 rns_bconv", ("rns_bconv_kernel",)),
+from ..core.cuda_build import KERNELS
+
+# the hand-written kernels first, one class each ("K1 fs_ntt", ...)
+CLASSES = tuple((f"{key.upper()} {k.source}", k.functions) for key, k in KERNELS.items()) + (
     ("fp64 GEMM (mod_matmul)", ("gemm", "cutlass", "cublas", "dgemm")),
     ("gather / index (Galois permutation, limb subsets)", ("index", "gather", "scatter")),
     ("copy / cat / memcpy / memset", ("catarray", "copy", "memcpy", "memset")),
@@ -165,21 +164,20 @@ def op_census(prof, spans) -> Counter:
 
 def stage_table(spans) -> dict:
     """Per stage dispatch span name: [dispatches, host s, device s, NTT
-    planes, K1 and K2 launches, K3 launches, K4 launches, evaluator ops],
-    summed over its dispatches."""
+    planes, the launches of each kernel of `cuda_build.KERNELS` in its
+    order, evaluator ops], summed over its dispatches."""
     out = {}
     for s in spans:
         if "kind" in s.counts:
             c = s.counts
-            row = out.setdefault(s.name, [0, 0.0, 0.0, 0, 0, 0, 0, 0])
+            row = out.setdefault(s.name, [0, 0.0, 0.0, 0] + [0] * len(KERNELS) + [0])
             row[0] += 1
             row[1] += (s.end - s.start) / 1e9
             row[2] += (s.device[1] - s.device[0]) / 1e9 if s.device else 0.0
             row[3] += c["planes"]
-            row[4] += c["k1"] + c["k2"]
-            row[5] += c["k3"]
-            row[6] += c["k4"]
-            row[7] += c["ops"]
+            for i, key in enumerate(KERNELS, 4):
+                row[i] += c[key]
+            row[-1] += c["ops"]
     return out
 
 
@@ -248,12 +246,12 @@ def profile(sort, ct, label: str, smi: str, top: int = 12) -> dict:
         stage_s = sum(r[2] for r in stages.values())
         print(f"# {label}: {sum(r[0] for r in stages.values())} stage dispatches, device "
               f"{stage_s:.4f}s = {100 * stage_s / (busy / 1e6):.2f}% of the busy time; by stage "
-              f"(dispatches, host s, device s, NTT planes, K1 and K2 launches, K3 launches, "
-              f"K4 launches, ops):")
-        for name, (n, host_s, dev_s, planes, launched, k3, k4, ops) in sorted(
+              f"(dispatches, host s, device s, NTT planes, "
+              + ", ".join(f"{key.upper()} launches" for key in KERNELS) + ", ops):")
+        for name, (n, host_s, dev_s, planes, *launched, ops) in sorted(
                 stages.items(), key=lambda kv: -kv[1][2]):
-            print(f"#   {name:24s} {n:3d}  {host_s:8.4f}  {dev_s:8.4f}  {planes:7d}  {launched:6d}"
-                  f"  {k3:6d}  {k4:6d}  {ops:5d}")
+            print(f"#   {name:24s} {n:3d}  {host_s:8.4f}  {dev_s:8.4f}  {planes:7d}  "
+                  + "  ".join(f"{k:6d}" for k in launched) + f"  {ops:5d}")
     census = op_census(prof, spans)
     if any(op.startswith("ev.") for op, _ in census):
         print(f"# {label}: op census, device seconds by evaluator op and kernel class ({smi}):")

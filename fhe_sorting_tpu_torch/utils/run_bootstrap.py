@@ -132,7 +132,7 @@ def harness_context(args):
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
 
-    from ..core import bf_ntt, fs_ntt
+    from ..core import cuda_build
     from ..core.ntt import synchronize
     from . import hbm_budget
 
@@ -161,13 +161,12 @@ def main(argv=None) -> dict:
     nh = ring // 2
     z = np.random.default_rng(3).uniform(0, 1.0, nh)
     ct = keys.encrypt(z)
-    fs_ntt.launches = bf_ntt.launches = 0
+    cuda_build.reset()
     t0 = time.time()
     out = bs.bootstrap(ev.level_reduce(ct, 8))
     synchronize(ctx.device)
     boot_s = time.time() - t0
-    _log(f"# launches in the refresh: K1 {fs_ntt.launches}, K2 {bf_ntt.launches}; "
-         f"{boot_s:.2f}s ({where})")
+    _log(f"# launches in the refresh: {cuda_build.counts()}; {boot_s:.2f}s ({where})")
     if on_card:
         peak = torch.cuda.max_memory_allocated(ctx.device) / 2**30
         _log(f"# peak device memory {peak:.2f} GiB measured, {report['used_gib']} GiB reckoned, "

@@ -16,7 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from fhe_sorting_tpu_torch.core import cuda_build
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _only(key, n):
+    """The launch counter's delta where kernel `key` alone launched n times."""
+    return {k: n if k == key else 0 for k in cuda_build.KERNELS}
 
 
 @pytest.mark.cuda
@@ -42,11 +49,11 @@ def test_k1_matches_plain_on_card(ring, limbs, batch, subset):
                                       device="cuda"), p)
     x[0, 0, 0, :4] = torch.tensor([0, 1, int(p[0]) - 1, 0], device="cuda")
     x[0, -1] = p[-1] - 1                      # a whole plane of the largest residue
-    before = fs_ntt.launches
+    before = cuda_build.counts()
     fwd = fs_ntt.four_step(x, t, sel, inverse=False)
     inv = fs_ntt.four_step(fwd, t, sel, inverse=True)
     torch.cuda.synchronize()
-    assert fs_ntt.launches == before + 4
+    assert cuda_build.since(before) == _only("k1", 4)
     assert torch.equal(fwd, ntt_mxu.ntt_plain(x, t, sel, False))
     assert torch.equal(inv, ntt_mxu.ntt_plain(fwd, t, sel, True))
     assert torch.equal(inv, x)
@@ -79,11 +86,11 @@ def test_k2_matches_plain_on_card(ring, bits, subset):
     x = torch.remainder(torch.randint(0, 1 << 62, (2, L, ring), generator=gen,
                                       device="cuda"), p)
     x[0, 0, :4] = torch.tensor([0, 1, int(p[0]) - 1, 0], device="cuda")   # edge residues
-    before = bf_ntt.launches
+    before = cuda_build.counts()
     fwd = bf_ntt.butterfly(x, t, limbs, inverse=False)
     inv = bf_ntt.butterfly(fwd, t, limbs, inverse=True)
     torch.cuda.synchronize()
-    assert bf_ntt.launches == before + 2                  # one launch a transform
+    assert cuda_build.since(before) == _only("k2", 2)     # one launch a transform
     want_fwd = ntt.butterfly_plain(x, t, limbs, False)
     assert torch.equal(fwd, want_fwd)
     assert torch.equal(inv, ntt.butterfly_plain(fwd, t, limbs, True))
@@ -96,9 +103,9 @@ def test_k2_matches_plain_on_card(ring, bits, subset):
             assert torch.equal(bf_ntt._launch(x, t, idx, False, c), want_fwd)
             assert torch.equal(bf_ntt._launch(want_fwd, t, idx, True, c), x)
     # the routing: ntt/intt with butterfly tables launch K2 on a CUDA tensor
-    before = bf_ntt.launches
+    before = cuda_build.counts()
     assert torch.equal(ntt.ntt(x, t, limbs), fwd)
-    assert bf_ntt.launches > before
+    assert cuda_build.since(before)["k2"] > 0
     with pytest.raises(ValueError):
         bf_ntt.butterfly(x.to(torch.int32), t, limbs, inverse=False)
 
@@ -154,18 +161,18 @@ def test_k3_matches_plain_on_card(ring, r, bits, B, subset):
     cw = torch.cat([c, w, p], dim=1)
     cv, wv, pv = cw[:, 0:1], cw[:, 1:2], cw[:, 2:3]
     assert pv.stride(0) == 3
-    before = rns_div.launches
+    before = cuda_build.counts()
     t = rns_div.lift(x, p, c, half)
     out = rns_div.sub_scale(a, b, p, w)
     torch.cuda.synchronize()
-    assert rns_div.launches == before + 2
+    assert cuda_build.since(before) == _only("k3", 2)
     assert torch.equal(t, rns_div.lift_plain(x, p, c, half))
     assert torch.equal(out, rns_div.sub_scale_plain(a, b, p, w))
     assert torch.equal(rns_div.lift(x, pv, cv, half), t)
     assert torch.equal(rns_div.sub_scale(a, b, pv, wv), out)
     assert rns_div.lift(x, p[:0], c[:0], half).shape == (B, 0, ring)
     assert rns_div.sub_scale(a[:, :0], b[:, :0], p[:0], w[:0]).shape == (B, 0, ring)
-    assert rns_div.launches == before + 4
+    assert cuda_build.since(before) == _only("k3", 4)
     with pytest.raises(ValueError):       # every other residue: no plain fallback
         rns_div.sub_scale(a[..., ::2], b[..., ::2], p, w)
     with pytest.raises(ValueError):
@@ -178,7 +185,8 @@ def test_k3_in_evaluator_and_graphs_on_card():
     the CPU evaluator's planes on the same inputs, through K3 (two launches a
     dropped limb, one a ModDown, no int64 remainder left); a stage of two
     rescales on a CUDA graph replays to the eager planes, and its replay
-    advances `rns_div.launches` and its span's `k3` as the eager call did."""
+    advances the launch counter's `k3` and its span's `k3` as the eager call
+    did."""
     if not torch.cuda.is_available():
         pytest.skip("K3 is a CUDA kernel: needs a CUDA device")
     from fhe_sorting_tpu_torch.core import rns_div, trace
@@ -202,11 +210,11 @@ def test_k3_in_evaluator_and_graphs_on_card():
     c %= np.concatenate([ps[:ctx.limbs_at(level)], ps[ctx.num_q:]])[:, None]
     got = {}
     for dev, ev in evs.items():
-        before = rns_div.launches
+        before = cuda_build.counts()
         ct = Ciphertext(torch.from_numpy(data).to(dev), level, 2, n // 2)
         got[dev] = (ev.rescale(ct).data, ev._moddown(torch.from_numpy(c).to(dev), level))
         torch.cuda.synchronize()
-        assert rns_div.launches - before == (0 if dev == "cpu" else 2 * params.comp + 1)
+        assert cuda_build.since(before)["k3"] == (0 if dev == "cpu" else 2 * params.comp + 1)
     for g_cpu, g_card in zip(got["cpu"], got["cuda"]):
         assert torch.equal(g_card.cpu(), g_cpu)
 
@@ -218,10 +226,10 @@ def test_k3_in_evaluator_and_graphs_on_card():
     launched = []
     with trace.recording():
         for _ in range(2):
-            before = rns_div.launches
+            before = cuda_build.counts()
             out = stage([ct])                           # replays
             torch.cuda.synchronize()
-            launched.append(rns_div.launches - before)
+            launched.append(cuda_build.since(before)["k3"])
             assert torch.equal(out.data, want.data)
     spans = [s for s in trace.spans() if s.name == "k3.rescales"]
     assert launched == [4 * params.comp] * 2

@@ -20,6 +20,8 @@ op of its own beyond those hooks.  The card's entry for the sharded sort
 (`multichip.run_limb_sort`) gives one rank's planes at two ranks, each
 holding and transforming about half."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -248,6 +250,8 @@ def test_card_entry_splits_the_sort(tmp_path):
         res[world] = [dict(np.load(f"{out}{r}.npz")) for r in range(world)]
     one = res[1][0]
     assert float(one["err"]) < 0.01
+    # the kernels' launches by name; none on the CPU
+    assert json.loads(str(one["launches"])) == {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
     for r in res[2]:
         np.testing.assert_array_equal(r["data"], one["data"])
         assert tuple(r["meta"]) == tuple(one["meta"])

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from fhe_sorting_tpu_torch.core import primes, rns_bconv
+from fhe_sorting_tpu_torch.core import cuda_build, primes, rns_bconv
 from fhe_sorting_tpu_torch.core.context import CkksParams, Context, cyclic
 from fhe_sorting_tpu_torch.core.modmath import mulmod
 from fhe_sorting_tpu_torch.core.ntt_mxu import mod_matmul
@@ -301,10 +301,10 @@ def test_k4_matches_plain_on_card(cell):
         for args in ((x, rows.dhat_inv, ctx.p_active(level), rows.dig_ext, rows.p_target,
                       ctx.digit_layout(level)),
                      (cp, rows.phat_inv, ctx.p_special(), rows.pext, rows.p_active, ((0, K),))):
-            before = rns_bconv.launches
+            before = cuda_build.counts()
             got = rns_bconv.base_extend(*args)
             torch.cuda.synchronize()
-            assert rns_bconv.launches == before + 1
+            assert cuda_build.since(before) == {"k1": 0, "k2": 0, "k3": 0, "k4": 1}
             assert torch.equal(got, rns_bconv.base_extend_plain(*args)), level
 
 
@@ -336,13 +336,14 @@ def test_k4_views_wide_digits_and_zero_rows_on_card():
         fac = torch.remainder(torch.randint(0, 1 << 62, (50, R), generator=gen, device="cuda"),
                               pout)
         args = (x, hat, pin_v, fac, pout, digits)
-        before = rns_bconv.launches
+        before = cuda_build.counts()
         got = rns_bconv.base_extend(*args)
         torch.cuda.synchronize()
-        assert rns_bconv.launches == before + 1
+        assert cuda_build.since(before) == {"k1": 0, "k2": 0, "k3": 0, "k4": 1}
         assert torch.equal(got, rns_bconv.base_extend_plain(*args)), (widths, n)
         empty = rns_bconv.base_extend(x, hat, pin_v, fac[:0], pout[:0], digits)
-        assert empty.shape == (2 * len(widths), 0, n) and rns_bconv.launches == before + 1
+        assert empty.shape == (2 * len(widths), 0, n)
+        assert cuda_build.since(before) == {"k1": 0, "k2": 0, "k3": 0, "k4": 1}
     with pytest.raises(ValueError):       # every other residue: no plain fallback
         rns_bconv.base_extend(x[..., ::2], hat, pin_v, fac, pout, digits)
     with pytest.raises(ValueError):
@@ -356,8 +357,8 @@ def test_k4_in_evaluator_and_graphs_on_card():
     """ModUp and ModDown of an evaluator on the card give the CPU evaluator's
     planes on the same inputs at every level, each through one K4 launch; a
     stage of two rotations on a CUDA graph replays to the eager planes, and
-    its replay advances `rns_bconv.launches` and its span's `k4` as the
-    eager call did."""
+    its replay advances the launch counter's `k4` and its span's `k4` as
+    the eager call did."""
     _card()
     from fhe_sorting_tpu_torch.core import trace
     from fhe_sorting_tpu_torch.core.cipher import Ciphertext
@@ -382,11 +383,11 @@ def test_k4_in_evaluator_and_graphs_on_card():
         c %= np.concatenate([ps[:Ll], ps[ctx.num_q:]])[:, None]
         got = {}
         for dev, ev in evs.items():
-            before = rns_bconv.launches
+            before = cuda_build.counts()
             got[dev] = (ev._modup(torch.from_numpy(d).to(dev), level),
                         ev._moddown(torch.from_numpy(c).to(dev), level))
             torch.cuda.synchronize()
-            assert rns_bconv.launches - before == (0 if dev == "cpu" else 2)
+            assert cuda_build.since(before)["k4"] == (0 if dev == "cpu" else 2)
         for g_cpu, g_card in zip(got["cpu"], got["cuda"]):
             assert torch.equal(g_card.cpu(), g_cpu), level
 
@@ -395,17 +396,17 @@ def test_k4_in_evaluator_and_graphs_on_card():
     data = rng.integers(0, 1 << 62, (2, Ll, n)) % ps[:Ll, None]
     ct = Ciphertext(torch.from_numpy(data).cuda(), 1, 1, n // 2)
     stage = WholeGraph(ev, lambda cts: ev.rotate(ev.rotate(cts[0], 1), 2), name="k4.rotations")
-    before = rns_bconv.launches
+    before = cuda_build.counts()
     want = stage([ct])                                  # eager, then the capture
     torch.cuda.synchronize()
-    assert rns_bconv.launches - before == 4             # the capture launched nothing
+    assert cuda_build.since(before)["k4"] == 4          # the capture launched nothing
     launched = []
     with trace.recording():
         for _ in range(2):
-            before = rns_bconv.launches
+            before = cuda_build.counts()
             out = stage([ct])                           # replays
             torch.cuda.synchronize()
-            launched.append(rns_bconv.launches - before)
+            launched.append(cuda_build.since(before)["k4"])
             assert torch.equal(out.data, want.data)
     spans = [s for s in trace.spans() if s.name == "k4.rotations"]
     assert launched == [4, 4]

@@ -164,6 +164,9 @@ def test_stage_spans_nest_under_their_sort_span(profiled, kind):
         parent = by_id[s.parent]
         assert parent.name in SORT_SPANS[kind] and parent.parent is None
         assert s.sort == parent.sort and s.counts["kind"] == "eager"
+        # every registered kernel's launches, none of them on the CPU
+        assert list(s.counts) == ["kind", "planes", "k1", "k2", "k3", "k4", "ops"]
+        assert all(s.counts[k] == 0 for k in ("k1", "k2", "k3", "k4"))
         assert s.counts["ops"] == sum(srt.stages[s.name.split(".", 1)[1]].op_counts.values())
         # on the CPU the device interval is the host interval
         assert s.device == (s.start, s.end)

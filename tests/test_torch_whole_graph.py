@@ -165,7 +165,7 @@ def test_graph_replays_k1_and_k2_on_card():
     """One K2 cluster launch and one K1 pair captured in a graph: each replay
     equals an eager launch on the same planes, new data included."""
     _card()
-    from fhe_sorting_tpu_torch.core import bf_ntt, fs_ntt, ntt, ntt_mxu, primes
+    from fhe_sorting_tpu_torch.core import bf_ntt, cuda_build, fs_ntt, ntt, ntt_mxu, primes
 
     ring = 1 << 17
     n1, n2 = ntt_mxu.split_n(ring)
@@ -186,10 +186,10 @@ def test_graph_replays_k1_and_k2_on_card():
     eager(x)                                   # the kernels' one-time set-up runs outside
     buf = x.clone()
     g = torch.cuda.CUDAGraph()
-    before = (bf_ntt.launches, fs_ntt.launches)
+    before = cuda_build.counts()
     with torch.cuda.graph(g):
         o2, o1 = eager(buf)
-    assert (bf_ntt.launches - before[0], fs_ntt.launches - before[1]) == (1, 2)
+    assert cuda_build.since(before) == {"k1": 2, "k2": 1, "k3": 0, "k4": 0}
     for y in (x, planes()):
         buf.copy_(y)
         g.replay()
@@ -271,10 +271,10 @@ def _planes(out):
 def test_sorts_on_graphs_equal_eager_on_card(kind, n, ring, sign, request):
     """The staged, scan and sharded sorts on graphs against the same sorts
     run eagerly on the card: equal planes on two inputs, and the replays'
-    K2 tallies equal to the eager launches (the sharded sorts on a one-rank
-    NCCL world, their all-reduces between the graphs)."""
+    launch tallies equal to the eager launches, K2's above 0 (the sharded
+    sorts on a one-rank NCCL world, their all-reduces between the graphs)."""
     _card()
-    from fhe_sorting_tpu_torch.core import bf_ntt
+    from fhe_sorting_tpu_torch.core import cuda_build
 
     make, encrypt, decrypt = _card_sort(kind, n, ring, sign, request)
     eager, graphs = make(False), make(None)
@@ -285,14 +285,14 @@ def test_sorts_on_graphs_equal_eager_on_card(kind, n, ring, sign, request):
     for seed in (2, 3):
         vals = rng.permutation(n) / n + 0.5 / n
         ct = encrypt(vals, seed)
-        before = bf_ntt.launches
+        before = cuda_build.counts()
         want = eager(ct)
         torch.cuda.synchronize()
-        mid = bf_ntt.launches
+        launched, mid = cuda_build.since(before), cuda_build.counts()
         got = graphs(ct)
         torch.cuda.synchronize()
         assert torch.equal(_planes(got), _planes(want))
-        assert bf_ntt.launches - mid == mid - before > 0
+        assert cuda_build.since(mid) == launched and launched["k2"] > 0
         assert float(np.abs(decrypt(got) - np.sort(vals)).max()) < 0.01
 
 
@@ -301,12 +301,12 @@ def test_second_hybrid_sort_only_replays_on_card():
     """The staged hybrid sort of 8 values over two 4-wide tiles on graphs,
     twice from keys given once (its one key set, constructRank's and the
     placement's): the second sort's dispatches are all replays, its output
-    equals the first's bit for bit, and it runs the NTT planes and K1, K2
-    and K3 launches of the same sort run eagerly on the warm evaluator (the
-    first sort runs each stage eagerly before capturing it, and so also
-    encodes the plaintexts its memo then keeps)."""
+    equals the first's bit for bit, and it runs the NTT planes and the
+    launches of every kernel of the same sort run eagerly on the warm
+    evaluator (the first sort runs each stage eagerly before capturing it,
+    and so also encodes the plaintexts its memo then keeps)."""
     _card()
-    from fhe_sorting_tpu_torch.core import trace
+    from fhe_sorting_tpu_torch.core import cuda_build, trace
     from fhe_sorting_tpu_torch.parallel.hybrid_staged import (
         StagedHybridSort, hybrid_rotation_indices)
 
@@ -328,7 +328,7 @@ def test_second_hybrid_sort_only_replays_on_card():
     assert "capture" in {s.counts["kind"] for s in d1}
     assert [s.name for s in d2] == [s.name for s in d1] == [s.name for s in d3]
     assert all(s.counts["kind"] == "replay" for s in d2)
-    for what in ("planes", "k1", "k2", "k3"):
+    for what in ("planes", *cuda_build.KERNELS):
         assert sum(s.counts[what] for s in d2) == sum(s.counts[what] for s in d3), what
     assert sum(s.counts["planes"] for s in d2) > 0 and sum(s.counts["k3"] for s in d2) > 0
     assert srt.stages.graph_count() == len(srt.stages)
