@@ -11,16 +11,21 @@ Phases (each failure raises, and the script exits non-zero):
      together;
   3. hold K1 against its plain PyTorch version on the card, bit for bit:
      ring 2^17 (n1=256, n2=512) on limbs of the N=128 chain and on a whole
-     ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape;
-  4. hold K2 against its plain version the same way (ring 2^17 on four limbs
-     and on a whole ciphertext, ring 2^12, ring 2^10) and against K1 on the
-     same planes; time K2, K1 and the plain butterfly, forward and inverse,
-     and both kernels at one small transform of the sort, [1, K, 2^17] on the
-     special limbs (ModDown's inverse NTT); print how many clusters (planes)
-     of K2 the card holds at once;
-  5. drive the staged path: Context(ring 2^17, depth from the depth meter)
-     -> Keys -> Evaluator -> StagedDirectSort at N=128, eagerly
-     (`graphs=False`) and on CUDA graphs (the default: each stage one
+     ciphertext, and ring 2^12; time both at the ring-2^17 ciphertext shape.
+     The N=128 chain's context names the four-step NTT (`ntt="mxu"`), since
+     the default ("auto") is the butterfly on the card: phases 5 and 15 run
+     K1 on it;
+  4. require the default NTT of the same chain on the card to be the
+     butterfly (K2), and hold K2 against its plain version the same way
+     (ring 2^17 on four limbs and on a whole ciphertext, ring 2^12, ring
+     2^10) and against K1 on the same planes; time K2, K1 and the plain
+     butterfly, forward and inverse, and both kernels at one small
+     transform of the sort, [1, K, 2^17] on the special limbs (ModDown's
+     inverse NTT); print how many clusters (planes) of K2 the card holds at
+     once;
+  5. drive the staged path on K1: Context(ring 2^17, depth from the depth
+     meter, four-step NTT) -> Keys -> Evaluator -> StagedDirectSort at
+     N=128, eagerly (`graphs=False`) and on CUDA graphs (the default: each stage one
      captured graph, `parallel/whole_graph.py`), from the same ciphertext and
      keys: each a warm-up sort (on graphs: eager runs and captures) then a
      timed one, decrypt, and require max error < 0.01 against np.sort, K1
@@ -43,7 +48,7 @@ Phases (each failure raises, and the script exits non-zero):
      ring 2048, each row max error < 0.01) and its aggregate, the decrypt
      probe (`utils/probe_direct.py`, N=16, ring 2^12, sort error < 0.01)
      and the rotation bench (`utils/rotation_bench.py`, ring 2^12);
-  6. drive the per-op path the same way on a butterfly context:
+  6. drive the per-op path the same way on phase 4's default context (K2):
      DirectSort(ev, 128).sort over the full key set, and require K2
      launches > 0 and K1 launches == 0 for the timed sort.
  14. (run after phase 7, on phase 6's butterfly context) ScanDirectSort, each
@@ -106,9 +111,11 @@ Phases (each failure raises, and the script exits non-zero):
  16. (last) the entry points of the system's own measurements, each as a
      user runs it: `utils/ntt_bench.py` at its defaults ([2, 40, 2^16]: K2, the
      plain four-step and K1 bit-equal to the plain butterfly, then a
-     rotation and a multiplication on K1); `utils/run_bootstrap.py` at its
-     defaults (ring 2^14, sparse secret, level budget 3, on K1), max error
-     < 1e-2; K3 against its plain versions, bit for bit, on the top of the
+     rotation and a multiplication on its default NTT, K2); K1 against its
+     plain version on `utils/run_bootstrap.py`'s chain with the four-step
+     NTT named; `utils/run_bootstrap.py` at its defaults (ring 2^14, sparse
+     secret, level budget 3, on the default NTT, K2), max error < 1e-2; K3
+     against its plain versions, bit for bit, on the top of the
      `direct_n128` chain (ring 2^17, Lq 68: the first rescale's lift and
      division [2, 67, 2^17], ModDown's division [2, 68, 2^17]), timed beside
      its byte bound and beside the plain PyTorch chain it replaced; K4
@@ -121,8 +128,8 @@ rotations, so each rescales and switches keys) reads the kernels' launch
 counter (`core/cuda_build.py`, `{"k1": n, ...}`), set to 0 just before and
 read just after (in phase 17 by each rank's process), and must launch its
 context's NTT kernel and not the other (K2 on the butterfly contexts of
-phases 6-14 and 17, K1 on phases 5, 15(b) and 16's refresh), K3 and K4, as
-often on graphs as eagerly where it runs both ways; the kernels' JSON gives
+phases 6-14 and 17 and in 16's refresh, K1 on phases 5 and 15(b)), K3 and
+K4, as often on graphs as eagerly where it runs both ways; the kernels' JSON gives
 each kernel the sum of those runs' launches.  Every phase from 5 on
 reckons its memory first (`hbm_budget.check_phase`, with the path's
 measured working set) and fails where its measured peak exceeds that
@@ -1154,9 +1161,10 @@ def _phase16_entry_points(smi):
     as a user runs it: (a) the NTT microbenchmark (`utils/ntt_bench.py`) at
     its defaults, every transform, forward and inverse, bit-equal to the
     plain butterfly; (b) K1 held to its plain version on the bootstrap
-    harness's chain, then the harness (`utils/run_bootstrap.py`) at its
-    defaults, ring 2^14 under a sparse secret on K1, max error below 1e-2,
-    its refresh counted; (c) K3 against its plain versions at
+    harness's chain with the four-step NTT named, then the harness
+    (`utils/run_bootstrap.py`) at its defaults, ring 2^14 under a sparse
+    secret on the default NTT (K2), max error below 1e-2, its refresh
+    counted; (c) K3 against its plain versions at
     the top of `direct_n128`'s chain (`_k3_check`), and K4 against its plain
     version at the top of `mehp24_n512`'s and `direct_n128`'s (`_k4_check`).
     Returns K1's largest difference from its plain version, and K3's and
@@ -1177,13 +1185,13 @@ def _phase16_entry_points(smi):
     print(f"# ntt_bench at its defaults: {time.time() - t0:.1f}s")
     _release()
 
-    # -- (b) the bootstrap harness at its defaults (ring 2^14, K1), after K1
-    # against its plain version on that chain (n1 = n2 = 128): every prime,
-    # and the key switch's extended set at the refresh's input level
-    bctx = run_bootstrap.harness_context(run_bootstrap.parser().parse_args([]))
+    # -- (b) the bootstrap harness at its defaults (ring 2^14, K2), after K1
+    # against its plain version on that chain (n1 = n2 = 128), the four-step
+    # NTT named: every prime, and the key switch's extended set at the
+    # refresh's input level
+    args = run_bootstrap.parser().parse_args([])
+    bctx = run_bootstrap.context(args.ring, args.depth, run_bootstrap.HAMMING, ntt_impl="mxu")
     ring, tabs = bctx.params.ring_n, bctx.tables
-    if bctx.ntt_impl != "mxu":
-        raise AssertionError(f"run_bootstrap: NTT {bctx.ntt_impl} at its defaults, not K1")
     gen = torch.Generator(device=bctx.device)
     gen.manual_seed(16)
     k1_err = 0
@@ -1208,7 +1216,7 @@ def _phase16_entry_points(smi):
     print(f"# run_bootstrap: {secs:.1f}s in all")
     if not out["max_err"] < 1e-2:
         raise AssertionError(f"run_bootstrap: max error {out['max_err']} >= 1e-2")
-    _require("run_bootstrap", counts, "k1")
+    _require("run_bootstrap", counts)
     return k1_err, _k3_check(smi), _k4_check(smi)
 
 
@@ -1402,9 +1410,10 @@ def main() -> int:
 
     # -- phase 3: K1 against its plain version ---------------------------------
     # the N=128 chain (`profile_sort.sort_context`): the metered depth,
-    # which the per-op sort needs too
+    # which the per-op sort needs too; the four-step NTT named, since "auto"
+    # is the butterfly on the card
     t0 = time.time()
-    ctx, cfg, depth = sort_context(N, "staged")
+    ctx, cfg, depth = sort_context(N, "staged", "mxu")
     ctx_s = time.time() - t0
     assert depth == measure_direct_sort_depth(N, RING, cfg, staged=False)["mult_depth"]
     assert ctx.device == dev and ctx.ntt_impl == "mxu", (ctx.device, ctx.ntt_impl)
@@ -1443,11 +1452,14 @@ def main() -> int:
                    for inv in (False, True)]
 
     # -- phase 4: K2 against its plain version and against K1 ------------------
+    # the same chain with the default NTT ("auto"), which is K2 on the card
     t0 = time.time()
-    ctx2 = sort_context(N, "staged", "butterfly", depth=depth)[0]
+    ctx2 = sort_context(N, "staged", depth=depth)[0]
     ctx2_s = time.time() - t0
-    assert ctx2.ntt_impl == "butterfly" and ctx2.all_primes == ctx.all_primes
-    print(f"# butterfly context: same chain, {ctx2_s:.1f}s")
+    if ctx2.ntt_impl != "butterfly" or not isinstance(ctx2.tables, ntt.NttTables):
+        raise AssertionError(f"the default NTT on the card is {ctx2.ntt_impl}, not K2")
+    assert ctx2.all_primes == ctx.all_primes
+    print(f"# default (butterfly) context: same chain, {ctx2_s:.1f}s")
     bf = ctx2.tables
 
     def k2(limbs, t=bf):

@@ -18,12 +18,17 @@ the same parameters.  Differences:
     every row for the plain evaluator (one part) and one limb rank's own
     for the limb-parallel one (`parallel/mesh.LimbLayout`), cached per
     level;
-  * `ntt_impl="auto"` picks the four-step NTT with the CUDA kernel K1 when
-    the device is a GPU and the ring tiles (`ntt_mxu.supported`), the
-    butterfly otherwise (the CUDA kernel K2 on a GPU, plain PyTorch on the
-    CPU).  The environment variable `FHE_NTT`, where set, takes the place
-    of "auto" (the reference's variable also overrides a pinned
-    `ntt_impl`; here a caller that pins one keeps it);
+  * `ntt_impl="auto"` picks the butterfly NTT (`auto_ntt`): the CUDA
+    kernel K2 on a GPU at every ring a thread-block cluster holds a plane
+    of (up to 2^17), plain PyTorch on the CPU.  K2 does the same exact
+    arithmetic as the four-step K1 at less than half its time on an H100,
+    so the four-step NTT (K1, `ntt_impl="mxu"`) runs only where it is
+    named, or on a GPU at a larger ring that tiles.  The reference's
+    "auto" is the four-step NTT on a TPU (its MXU path) and the butterfly
+    on the CPU, so the two packages agree on the CPU only.  The
+    environment variable `FHE_NTT`, where set, takes the place of "auto"
+    (the reference's variable also overrides a pinned `ntt_impl`; here a
+    caller that pins one keeps it);
   * the gather-free automorphism's tables (`auto_tables`) and per-g
     constants (`galois_affine`) are made on first use and kept on the device,
     like the gather's permutations (`galois_perm`);
@@ -43,7 +48,7 @@ from decimal import Decimal, getcontext
 import numpy as np
 import torch
 
-from . import auto_affine
+from . import auto_affine, bf_ntt
 from . import ntt as nttm
 from . import ntt_mxu
 from . import primes as primes_mod
@@ -53,6 +58,17 @@ getcontext().prec = 120
 
 
 NTT_IMPLS = ("auto", "mxu", "butterfly")
+
+
+def auto_ntt(device_type: str, ring_n: int) -> str:
+    """The NTT that `ntt_impl="auto"` runs on a device of `device_type` at
+    ring `ring_n`: the butterfly (K2 on a GPU) wherever a thread-block
+    cluster holds a plane; on a GPU above that, the four-step K1 where the
+    ring tiles (`ntt_mxu.supported`)."""
+    if (device_type == "cuda" and ring_n > 1 << (bf_ntt.LOG_CHUNK + bf_ntt.MAX_LOG_CLUSTER)
+            and ntt_mxu.supported(ring_n, ntt_mxu.split_n(ring_n)[0])):
+        return "mxu"
+    return "butterfly"
 
 
 class FrozenError(RuntimeError):
@@ -236,7 +252,11 @@ def _rows(r: range) -> slice:
 
 
 class Context:
-    """Parameters, prime chain and device tables of one CKKS instance."""
+    """Parameters, prime chain and device tables of one CKKS instance.
+
+    Its NTT is `params.ntt_impl`, where "auto" is `auto_ntt`'s choice: the
+    butterfly (K2) on a GPU, where the reference's "auto" is its four-step
+    MXU path on a TPU; on the CPU both packages run the butterfly."""
 
     def __init__(self, params: CkksParams, device=None):
         """`device=None` is the first CUDA card (an error where there is
@@ -265,9 +285,7 @@ class Context:
             raise ValueError(f"ntt_impl (or FHE_NTT) {impl!r}: expected one of "
                              f"{', '.join(NTT_IMPLS)}")
         if impl == "auto":
-            impl = ("mxu" if self.device.type == "cuda"
-                    and ntt_mxu.supported(n, ntt_mxu.split_n(n)[0])
-                    else "butterfly")
+            impl = auto_ntt(self.device.type, n)
         self.ntt_impl = impl
         host = nttm.build_host_tables(tuple(self.all_primes), n)
         self._host_psi_rev, self._host_ipsi_rev, self._host_ninv = host

@@ -10,8 +10,8 @@ per ring and secret (`shape`), the same composer basis with a lazy key pool,
 the same input (`rng(3).uniform(0, 1, ring // 2)`), the same timed window
 (the reduction to level 8 and the refresh), and the same row keys, `bootstrap_s_gpu` on the card and `bootstrap_s_cpu` on
 the CPU.  The row is printed and appended to `--out`.  The NTT is the
-context's default (`ntt_impl="auto"`: K1 on the card at ring 2^14 and up)
-unless `FHE_NTT` names another.  On the card the device memory is reckoned
+context's default (`ntt_impl="auto"`: K2 on the card) unless `FHE_NTT`
+names another (`FHE_NTT=mxu`: K1).  On the card the device memory is reckoned
 before anything is allocated (`reckon`) and the measured peak is held to
 it; `#` lines on stderr give the card, the NTT and the kernels' launches in
 the refresh.

@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernels K1, K2 and K3, and its import hygiene.
+"""The port's hand-written CUDA kernels K1, K2 and K3, the NTT a default context
+runs on the card, and the port's import hygiene.
 
 The kernels against their plain PyTorch versions need a CUDA device and
 nvcc: marked `cuda`, they skip elsewhere (the card runs them, and
@@ -234,6 +235,40 @@ def test_k3_in_evaluator_and_graphs_on_card():
     spans = [s for s in trace.spans() if s.name == "k3.rescales"]
     assert launched == [4 * params.comp] * 2
     assert [(s.counts["kind"], s.counts["k3"]) for s in spans] == [("replay", 4 * params.comp)] * 2
+
+
+@pytest.mark.cuda
+def test_auto_runs_k2_on_card():
+    """A context on the card with the default NTT ("auto") at a ring K1 tiles
+    (2^15) holds the butterfly's tables, and an eager staged DirectSort on it
+    launches K2 and no K1, and sorts."""
+    if not torch.cuda.is_available():
+        pytest.skip("K2 is a CUDA kernel: needs a CUDA device")
+    from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+    from fhe_sorting_tpu_torch.core.evaluator import Evaluator
+    from fhe_sorting_tpu_torch.core.keys import Keys
+    from fhe_sorting_tpu_torch.core.ntt import NttTables
+    from fhe_sorting_tpu_torch.ops.sign import CompositeSignConfig, SignConfig
+    from fhe_sorting_tpu_torch.parallel.direct_staged import (
+        StagedDirectSort, scan_rotation_indices)
+    from fhe_sorting_tpu_torch.utils.depth_meter import measure_direct_sort_depth
+
+    n, ring = 8, 1 << 15
+    cfg = SignConfig(CompositeSignConfig(3, 2, 2))
+    depth = measure_direct_sort_depth(n, ring, cfg)["mult_depth"]
+    ctx = Context(CkksParams(ring_n=ring, mult_depth=depth))
+    assert ctx.ntt_impl == "butterfly" and isinstance(ctx.tables, NttTables)
+    keys = Keys.generate(ctx, seed=0)
+    keys.gen_rotation_keys(sorted(scan_rotation_indices(n, ring)))
+    vals = np.random.default_rng(0).permutation(n) / n + 0.5 / n
+    ct = keys.encrypt(vals, seed=1)
+    before = cuda_build.counts()
+    out = StagedDirectSort(Evaluator(ctx, keys), n, cfg, graphs=False)(ct)
+    torch.cuda.synchronize()
+    launched = cuda_build.since(before)
+    assert launched["k2"] > 0 and launched["k1"] == 0
+    assert float(np.abs(keys.decrypt(out, n) - np.sort(vals)).max()) < 0.01
+
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port (and

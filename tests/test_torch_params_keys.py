@@ -13,7 +13,7 @@ from fhe_sorting_tpu.core.context import CkksParams as JParams
 from fhe_sorting_tpu.core.context import Context as JContext
 from fhe_sorting_tpu.core.keys import Keys as JKeys
 from fhe_sorting_tpu.utils import params_registry as jreg
-from fhe_sorting_tpu_torch.core.context import CkksParams, Context
+from fhe_sorting_tpu_torch.core.context import CkksParams, Context, auto_ntt
 from fhe_sorting_tpu_torch.core.evaluator import Evaluator
 from fhe_sorting_tpu_torch.core.keys import Keys, SecretKeyMissing
 from fhe_sorting_tpu_torch.utils import params_registry as treg
@@ -163,6 +163,18 @@ def test_fhe_ntt_picks_the_implementation(monkeypatch, env, impl, want):
     if env is None or impl == "auto":
         assert want == JContext(JParams(**params)).ntt_impl
     assert hasattr(ctx.tables, "w1f") == (want == "mxu")
+
+
+@pytest.mark.parametrize("device,log_ring,want", [
+    *[("cuda", k, "butterfly") for k in (10, 12, 14, 15, 16, 17)],
+    *[("cpu", k, "butterfly") for k in (12, 14, 15, 16, 17, 18)],
+    ("cuda", 18, "mxu"),
+])
+def test_auto_ntt_rule(device, log_ring, want):
+    """`ntt_impl="auto"` is the butterfly (K2 on a GPU) at every ring a
+    thread-block cluster holds, 2^17 and below, on the card as on the CPU;
+    only a larger ring that tiles takes the four-step K1 on a GPU."""
+    assert auto_ntt(device, 1 << log_ring) == want
 
 
 def test_fhe_ntt_unknown_value_raises(monkeypatch):
