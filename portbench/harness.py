@@ -5,7 +5,13 @@ found by its name in `BENCHMARK.json`:
 
   configuration   the file the configs entry names (`configs/<name>.json`):
                   `builder` names `builders/<builder>.py`, `params` the
-                  chain, `limits` the numbers `correct` is held to
+                  chain (the program's `CkksParams` fields that
+                  `program.PARAM_KEYS` lists, `first_mod_bits` among them),
+                  `limits` the numbers `correct` is held to
+  builder         `rotation_steps(config, ring_n)` and `Sort(ev, config)`;
+                  `CONJUGATION_KEY = True` where its sort conjugates (a
+                  refresh's CoeffsToSlots), so that the key set holds the
+                  conjugation key too
   traffic mix     `traffic/<name>.json`, read by `traffic.py`
   metric          `metrics/<name>.py`, whose `read(run)` returns the value
                   or None where it finds nothing to read
@@ -198,7 +204,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     s = gen.secret(params["ring_n"], seed)
     with setup("keygen"):
         keys = program.keys(ctx, s, gen.rng(seed, gen.KEYS),
-                            build.rotation_steps(config, params["ring_n"]))
+                            build.rotation_steps(config, params["ring_n"]),
+                            conjugation_key=getattr(build, "CONJUGATION_KEY", False))
     from fhe_sorting_tpu_torch.core.evaluator import Evaluator
 
     ev = Evaluator(ctx, keys)
@@ -269,7 +276,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
             judged[key] = err if math.isfinite(err) else math.inf
         run.errors.append(judged[key])
     log(f"# outputs: {len(got)} judged, {len(judged)} decrypted, against {len(vecs)} answers that "
-        f"differ by {gen.answer_gap(len(vecs), config['n']):.3e} or more; worst error "
+        f"differ by {gen.answer_gap(mix, config['n']):.3e} or more; worst error "
         f"{max(run.errors):.6e}")
     limits = config["limits"]
     checks = {

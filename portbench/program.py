@@ -12,7 +12,7 @@ import numpy as np
 
 # the configuration keys that are the program's `CkksParams` fields
 PARAM_KEYS = ("ring_n", "mult_depth", "scale_bits", "comp", "base_limbs", "dnum",
-              "special_bits", "sigma", "ntt_impl")
+              "special_bits", "sigma", "ntt_impl", "first_mod_bits")
 
 
 def context(params: dict, device):
@@ -22,11 +22,14 @@ def context(params: dict, device):
                    device=device)
 
 
-def keys(ctx, s: np.ndarray, rng: np.random.Generator, rotation_steps):
+def keys(ctx, s: np.ndarray, rng: np.random.Generator, rotation_steps,
+         conjugation_key: bool = False):
     """The program's key set for the secret coefficients `s`: its residues
     in the program's evaluation domain and the public key on the host, then
-    the relinearisation key and the rotation keys of `rotation_steps` on the
-    device, their randomness drawn from `rng`."""
+    the relinearisation key, the rotation keys of `rotation_steps` and, with
+    `conjugation_key`, the conjugation key on the device, their randomness
+    drawn from `rng` in that order (so the others' bits do not depend on
+    whether the conjugation key is asked for)."""
     from fhe_sorting_tpu_torch.core.encoding import coeffs_to_residues
     from fhe_sorting_tpu_torch.core.keys import Keys, _host_ntt_all
 
@@ -43,6 +46,8 @@ def keys(ctx, s: np.ndarray, rng: np.random.Generator, rotation_steps):
     out = Keys(ctx=ctx, s_coeffs=s.astype(np.int8), s_eval=s_eval, pk=(b, a))
     out.gen_relin_key(rng)
     out.gen_rotation_keys(rotation_steps, seed=int(rng.integers(0, 2**63)))
+    if conjugation_key:
+        out.gen_conj_key(seed=int(rng.integers(0, 2**63)))
     return out
 
 

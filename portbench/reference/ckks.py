@@ -55,7 +55,8 @@ def is_prime(n: int) -> bool:
     return True
 
 
-def chain(ring_n: int, mult_depth: int, scale_bits: int, comp: int, base_limbs: int):
+def chain(ring_n: int, mult_depth: int, scale_bits: int, comp: int, base_limbs: int,
+          first_mod_bits: int | None = None):
     """(q primes, limb 0 first and the last limb dropped first; scales as
     Decimal per level 0..mult_depth).
 
@@ -63,7 +64,10 @@ def chain(ring_n: int, mult_depth: int, scale_bits: int, comp: int, base_limbs: 
     level l; each level's primes are taken nearest to 2^(scale_bits/comp)
     from the pool of primes = 1 mod 2n around it, the last of them nearest to
     what keeps the scale at 2^scale_bits.  The base limbs are the nearest
-    primes left."""
+    primes left.  With `first_mod_bits`, the bottom `comp` base limbs (a
+    bootstrap's ModRaise base) are then the largest primes p = 1 mod 2n with
+    p - 1 <= 2^first_mod_bits and p < 2^31 that no limb took before, the
+    largest first; the scales stay those of the level primes."""
     m = 2 * ring_n
     prime_bits = scale_bits // comp
     delta = Decimal(2) ** scale_bits
@@ -102,6 +106,17 @@ def chain(ring_n: int, mult_depth: int, scale_bits: int, comp: int, base_limbs: 
         drops.append(lvl)
         scales.append(s * s / prod)
     base = [nearest(unit) for _ in range(base_limbs)]
+    if first_mod_bits is not None:
+        first = []
+        for k in range((1 << first_mod_bits) // m, 0, -1):
+            cand = k * m + 1
+            if cand < 2**31 and cand not in used and is_prime(cand):
+                first.append(cand)
+                if len(first) == comp:
+                    break
+        else:
+            raise ValueError(f"fewer than {comp} primes = 1 mod {m} up to 2^{first_mod_bits} + 1")
+        base[:comp] = first
     return base + [q for lvl in reversed(drops) for q in reversed(lvl)], scales
 
 
@@ -206,12 +221,15 @@ def decode(coeffs: np.ndarray, n: int, scale: float, slots: int) -> np.ndarray:
 
 class Decryptor:
     """Decrypts residue planes [2, L, n] of the chain that `params` states
-    with the secret coefficients `s` [n] in {-1, 0, 1}."""
+    (`first_mod_bits` where it names one) with the secret coefficients `s`
+    [n] in {-1, 0, 1}."""
 
     def __init__(self, params: dict, s: np.ndarray):
         self.n = int(params["ring_n"])
+        first = params.get("first_mod_bits")
         self.q, self.scales = chain(self.n, int(params["mult_depth"]), int(params["scale_bits"]),
-                                    int(params["comp"]), int(params["base_limbs"]))
+                                    int(params["comp"]), int(params["base_limbs"]),
+                                    None if first is None else int(first))
         self.s = np.asarray(s, dtype=np.int64)
         self._rings, self._s_eval = {}, {}
 

@@ -13,7 +13,11 @@ from portbench.tests import test_portbench_faults as faults
 from portbench.tests import tiny_hybrid
 
 CELL = "hybrid512.serial"
-METRICS = {"hybrid.rank_s", "hybrid.place_s", "hybrid.ind_s", "hybrid.fold_s", "hybrid.captures"}
+HYBRID = {"hybrid.rank_s", "hybrid.place_s", "hybrid.ind_s", "hybrid.fold_s", "hybrid.captures"}
+# the per-layer metrics the cell shares with the other cells
+SHARED = {"k2_launches", "k3_launches", "k4_launches", "ntt_planes", "ntt_device_pct",
+          "device_idle_pct", "dispatch_host_us", "keygen_s", "capture_s"}
+METRICS = HYBRID | SHARED
 
 torch.set_num_threads(2)
 
@@ -33,11 +37,15 @@ def test_the_cell_its_configuration_and_metrics_resolve():
         "sort_s", "precision_bits", "peak_mem_gib", "setup_s"}
     for name in METRICS:
         m = [x for x in b["per_layer"] if x["name"] == name][0]
-        assert m["workloads"] == [CELL] and m["moves"] == "sort_s"
+        if name in HYBRID:
+            assert m["workloads"] == [CELL] and m["moves"] == "sort_s"
+        else:
+            assert m["workloads"] == ["direct128.serial", "mehp24_512.serial", CELL]
         assert harness.reader(name).read(harness.Run(config)) is None
-    # no accepted cell reads a hybrid metric
+    # no other cell reads a hybrid metric
     for other in ("direct128.serial", "mehp24_512.serial"):
-        assert not {m["name"] for m in harness.cell_metrics(b, other, True)} & METRICS
+        got = {m["name"] for m in harness.cell_metrics(b, other, True)}
+        assert not got & HYBRID and SHARED <= got
 
 
 def test_the_key_set_is_the_programs_one_rule():
@@ -68,7 +76,7 @@ def test_a_tiny_hybrid_cell_is_correct(root, trace):
     got = set(line["metrics"])
     if trace:
         # no device here: the device intervals and dispatch kinds are not read
-        assert got == {"hybrid.rank_s", "hybrid.place_s"}
+        assert got == {"hybrid.rank_s", "hybrid.place_s", "keygen_s"}
     else:
         assert got == {"sort_s", "precision_bits", "setup_s"}
 

@@ -51,12 +51,61 @@ def test_the_same_seed_gives_the_same_inputs_and_secret():
     answers = [np.sort(v) for v in a]
     for i in range(len(answers)):
         for j in range(i):
-            assert np.abs(answers[i] - answers[j]).min() >= traffic.answer_gap(3, 64)
+            assert np.abs(answers[i] - answers[j]).min() >= traffic.answer_gap(mix, 64)
     assert (traffic.secret(256, 7) == traffic.secret(256, 7)).all()
     assert not (traffic.secret(256, 7) == traffic.secret(256, 8)).all()
     for v in a:
         s = sorted(v)
         assert 0 < s[0] and s[-1] < 1 and min(y - x for x, y in zip(s, s[1:])) > 0.99 / 64
+
+
+# sha256 (first 32 hex digits) of serial.pool2's stacked vectors at N and a
+# seed, as the mix drew them before a mix could set its offsets
+POOL2 = {(128, 3100000001): "69d8bbcca67c91205a3125d5ada01d01",
+         (128, 2**31 + 12345): "a268e70be70c2f5cf448a962517a6ea9",
+         (512, 3100000001): "d5ea72ec9a9c5d2b401df338aaecd02b",
+         (512, 2**31 + 12345): "4e43f291e53a835e0ac1d6dd193ee1d5"}
+
+
+@pytest.mark.parametrize("n, seed", sorted(POOL2))
+def test_a_mix_without_offsets_draws_what_it_drew_before(n, seed):
+    import hashlib
+
+    from portbench import traffic
+
+    with open(os.path.join(harness.ROOT, "portbench", "traffic", "serial.pool2.json")) as f:
+        mix = json.load(f)
+    assert not set(mix) & set(traffic.OFFSETS)
+    got = np.stack(traffic.vectors(mix, n, seed))
+    assert hashlib.sha256(got.tobytes()).hexdigest()[:32] == POOL2[n, seed]
+    assert traffic.answer_gap(mix, n) == 2 * 0.2 * 0.5 / 2 / n
+
+
+def test_a_wide_mix_sets_its_answers_far_apart():
+    """Offsets over all of (0, 1), 0.4 of each stratum kept free: answers 0.1
+    apart at N=4 and a pool of 2, values in (0, 1), 1/N apart, no ties."""
+    from portbench import traffic
+
+    mix = {"pool": 2, "warmup_sorts": 1, "traced_sorts": 1,
+           "offset_width": 1.0, "offset_edge": 0.4}
+    assert traffic.answer_gap(mix, 4) >= 0.1
+    for seed in (1, 2**31 + 5, 2**33 + 9):
+        vecs = traffic.vectors(mix, 4, seed)
+        a, b = (np.sort(v) for v in vecs)
+        assert np.abs(a - b).min() >= traffic.answer_gap(mix, 4)
+        for v in vecs:
+            s = np.sort(v)
+            assert 0 < s[0] and s[-1] < 1 and np.allclose(np.diff(s), 0.25)
+
+
+@pytest.mark.parametrize("over", [{"offset_width": 0.0}, {"offset_width": 1.1},
+                                  {"offset_edge": 0.0}, {"offset_edge": 0.5},
+                                  {"offset_spread": 0.1}])
+def test_offsets_out_of_range_are_refused(over):
+    from portbench import traffic
+
+    with pytest.raises(ValueError):
+        traffic.check({"pool": 2, "warmup_sorts": 1, "traced_sorts": 1, **over})
 
 
 def _command(cwd, *extra):

@@ -78,7 +78,7 @@ def test_the_answers_to_two_requests_lie_far_apart():
     for cell in b["workloads"]:
         _, config, mix = harness.resolve(b, cell["name"])
         assert mix["pool"] >= 2
-        assert traffic.answer_gap(mix["pool"], config["n"]) > 10 * config["limits"]["max_abs_err"]
+        assert traffic.answer_gap(mix, config["n"]) > 10 * config["limits"]["max_abs_err"]
 
 
 def test_a_new_cell_configuration_traffic_and_metric_are_files_and_entries(tmp_path):
